@@ -16,6 +16,7 @@ build or launch is an error, never a silent fallback.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import threading
 
@@ -24,12 +25,18 @@ import torch
 from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_unpacked
 from mpc_planner_tpu_torch.solver.qp import QPData, QPSolution, solve_qp
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+# nvcc flags of every kernel build: sm_90a (wgmma and setmaxnreg exist only
+# there), and ptxas' register and spill report, printed by a build run with
+# verbose=True.
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas=-v"]
 
-# Kernel launches made through the wrappers since the last reset
-# (read by chip_smoke.py to show the main path went through the kernels).
-launch_counts = {"qp": 0, "mirror": 0}
+# Kernel launches made through the wrappers since the last reset (read by
+# chip_smoke.py to show the main path went through the kernels): K1 "qp",
+# K2 "mirror", K3 "rti" (and its linearization alone, "rti_linearize",
+# ops/cuda_rti.py), K4 "riccati_probe" (experiments/riccati_probe.py).
+launch_counts = {"qp": 0, "mirror": 0, "rti": 0, "rti_linearize": 0, "riccati_probe": 0}
 
 # (nu, nx) pairs and matrix sizes the kernels are instantiated for
 # (qp_kernel.cu::launch_qp, mirror_kernel.cu::launch_mirror).
@@ -55,13 +62,27 @@ def load_kernels(verbose: bool = False):
             os.makedirs(BUILD_DIR, exist_ok=True)
             _ext = load(
                 name="mpc_planner_tpu_torch_kernels",
-                sources=[os.path.join(_CSRC, f)
+                sources=[os.path.join(CSRC, f)
                          for f in ("binding.cpp", "qp_kernel.cu", "mirror_kernel.cu")],
                 build_directory=BUILD_DIR,
-                extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+                extra_cuda_cflags=CUDA_FLAGS,
                 verbose=verbose,
             )
     return _ext
+
+
+def load_c_library(name: str, sources, directory: str, verbose: bool = False) -> ctypes.CDLL:
+    """Build sources with plain C entry points (no PyTorch headers, so
+    nvcc takes seconds) by torch.utils.cpp_extension.load into `directory`
+    and load the shared library with ctypes. A host-only source builds with
+    the host compiler, at -O1: it serves the CPU tests."""
+    from torch.utils.cpp_extension import load
+
+    os.makedirs(directory, exist_ok=True)
+    path = load(name=name, sources=list(sources), build_directory=directory,
+                extra_include_paths=[CSRC], extra_cflags=["-O1"], extra_cuda_cflags=CUDA_FLAGS,
+                is_python_module=False, verbose=verbose)
+    return ctypes.CDLL(path)
 
 
 def _check(t: torch.Tensor, name: str, shape) -> None:
@@ -91,7 +112,7 @@ def mirror_cuda(H: torch.Tensor, lm: float, sweeps: int = 6) -> torch.Tensor:
     return out
 
 
-def _lanes(x: torch.Tensor) -> torch.Tensor:
+def batch_innermost(x: torch.Tensor) -> torch.Tensor:
     """[B, ...] -> [..., B] contiguous (batch innermost)."""
     return x.movedim(0, -1).contiguous()
 
@@ -132,14 +153,14 @@ def solve_qp_cuda(
     lb = torch.where(qp.mask_l > 0, qp.lb, -1e15)
     ub = torch.where(qp.mask_u > 0, qp.ub, 1e15)
     Dh = qp.D[:, :, nvar:, :] if nh else qp.D.new_zeros(B, Np1, 1, nvar)
-    inputs = [_lanes(x) for x in (qp.H, qp.g, qp.A, qp.B, qp.c, Dh, lb, ub)]
+    inputs = [batch_innermost(x) for x in (qp.H, qp.g, qp.A, qp.B, qp.c, Dh, lb, ub)]
     if warm_duals is not None:
         wl, wu, ok = warm_duals
         _check(wl, "lam_l", (B, Np1, nrows))
         _check(wu, "lam_u", (B, Np1, nrows))
         if tuple(ok.shape) != (B,):
             raise ValueError(f"ok has shape {tuple(ok.shape)}, expected ({B},)")
-        inputs += [_lanes(wl), _lanes(wu), ok.to(torch.float32).contiguous()]
+        inputs += [batch_innermost(wl), batch_innermost(wu), ok.to(torch.float32).contiguous()]
     else:
         dummy = qp.H.new_zeros(1)
         inputs += [dummy, dummy, dummy]

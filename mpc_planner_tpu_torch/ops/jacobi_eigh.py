@@ -71,3 +71,17 @@ def mirror_unpacked(H: torch.Tensor, lm: float, sweeps: int = 6) -> torch.Tensor
             row.append(acc)
         rows.append(torch.stack(row, dim=-1))
     return torch.stack(rows, dim=-2)
+
+
+def mirror_nvar(H: torch.Tensor, lm: float, nu: int, x_only: bool, mirror=mirror_unpacked):
+    """MIRROR a [M, nvar, nvar] stage-Hessian stack with `mirror(H, lm)`.
+    With `x_only` (the u-block is diagonal and decoupled from x):
+    mirror(blkdiag(D, Hxx)) = blkdiag(max(|D|, lm), mirror(Hxx)), an
+    nx x nx eigenproblem."""
+    if not x_only:
+        return mirror(H.contiguous(), lm)
+    d = torch.diagonal(H[:, :nu, :nu], dim1=-2, dim2=-1).abs().clamp(min=lm)
+    out = H.new_zeros(H.shape)
+    out[:, :nu, :nu] = torch.diag_embed(d)
+    out[:, nu:, nu:] = mirror(H[:, nu:, nu:].contiguous(), lm)
+    return out

@@ -11,6 +11,9 @@ globalization, generate_acados_solver.py:155-162).
   * MIRROR and the QP run on the configured backend: "cuda" launches the
     hand-written Hopper kernels (ops/cuda_qp.py), "torch" runs their
     plain versions (solver/qp.py, ops/jacobi_eigh.py).
+  * `solver.rti_fused="on"` on the cuda backend runs the whole RTI loop
+    (linearization with generated derivative code, MIRROR, every QP) in
+    one launch of the fused kernel (ops/cuda_rti.py); "auto" resolves off.
   * One batched RTI loop serves every caller: `solve` is a batch of one.
     The per-cycle stall escalation reads exit codes on the host, a
     deliberate host sync, as in the reference.
@@ -22,10 +25,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, vmap
+from torch.func import hessian, vmap
 
-from mpc_planner_tpu_torch.ops.cuda_qp import mirror_cuda, solve_qp_cuda
-from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_unpacked
+from mpc_planner_tpu_torch.ops.cuda_qp import QP_SHAPES, mirror_cuda, solve_qp_cuda
+from mpc_planner_tpu_torch.ops.cuda_rti import solve_rti_cuda
+from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_nvar, mirror_unpacked
+from mpc_planner_tpu_torch.ops.rti import stage_derivatives
+from mpc_planner_tpu_torch.ops.stage_codegen import StageCode
 from mpc_planner_tpu_torch.solver.ocp import OCP
 from mpc_planner_tpu_torch.solver.qp import QPData, solve_qp
 
@@ -58,13 +64,18 @@ class SolveResult(NamedTuple):
     lam_u: torch.Tensor  # cycle's warm_duals (HPIPM warm_start=2)
 
 
-def _with_aux(f):
-    """f -> (z, p) -> (f(z, p), f(z, p)), for jacfwd(has_aux=True): the
-    Jacobian and the value from one evaluation."""
-    def g(z, p):
-        y = f(z, p)
-        return y, y
-    return g
+def resolve_qp_backend(backend: str, device: torch.device, nu: int, nx: int) -> str:
+    """The QP backend for a solver on `device`. "auto" picks "cuda" on a
+    CUDA device when K1 is instantiated for (nu, nx) (ops/cuda_qp.py::
+    QP_SHAPES; the reference's own gate is nu <= 3 and nvar <= 9,
+    mpc_planner_tpu/solver/sqp.py:176-179), else "torch"."""
+    if backend == "auto":
+        return "cuda" if device.type == "cuda" and (nu, nx) in QP_SHAPES else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"qp_backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"qp_backend='cuda' needs a CUDA device, got {device}")
+    return backend
 
 
 class SQPSolver:
@@ -98,14 +109,20 @@ class SQPSolver:
         N, nu, nx, nvar, nh = ocp.N, ocp.nu, ocp.nx, ocp.nvar, ocp.nh
         self.nrows = nu + nx + nh
 
-        backend = s.qp_backend
-        if backend == "auto":
-            backend = "cuda" if self.device.type == "cuda" and nu <= 3 else "torch"
-        if backend not in ("cuda", "torch"):
-            raise ValueError(f"qp_backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
-        if backend == "cuda" and self.device.type != "cuda":
-            raise ValueError(f"qp_backend='cuda' needs a CUDA device, got {self.device}")
-        self.qp_backend = backend
+        self.qp_backend = resolve_qp_backend(s.qp_backend, self.device, nu, nx)
+
+        # Fused route: the whole RTI loop in one launch of K3. "auto"
+        # resolves off, as in the reference (mpc_planner_tpu/solver/
+        # sqp.py:195-207). SQP mode needs the per-iteration convergence
+        # freeze, and corrector-only warm QPs a Mehrotra flag for the first
+        # QP that differs from the later ones: both stay unfused.
+        if s.rti_fused not in ("auto", "on", "off"):
+            raise ValueError(f"rti_fused must be 'auto', 'on' or 'off', got {s.rti_fused!r}")
+        self.rti_fused = (s.rti_fused == "on" and self.qp_backend == "cuda"
+                          and self.solver_type == "SQP_RTI" and not self.warm_corrector_only)
+        self._stage_code = StageCode(ocp)
+        if self.rti_fused:
+            self._stage_code.generate()  # an unsupported op raises here, at construction
 
         # Static row templates: box rows are the identity over z; masks
         # switch off u-box + h rows at the terminal node, x-box rows at
@@ -131,6 +148,13 @@ class SQPSolver:
             axis=1)
         self._mask_l = torch.as_tensor((active & lf[None]).astype(float), **f32)
         self._mask_u = torch.as_tensor((active & uf[None]).astype(float), **f32)
+        # The same rows as bound templates [N+1, nrows] for the fused route:
+        # +-1e15 sentinels where a row is inactive (the kernel derives its
+        # masks from a compare).
+        lb_row = torch.cat([self._lbz, self._lh]) if nh else self._lbz
+        ub_row = torch.cat([self._ubz, self._uh]) if nh else self._ubz
+        self._lb_template = torch.where(self._mask_l > 0, lb_row, -1e15)
+        self._ub_template = torch.where(self._mask_u > 0, ub_row, 1e15)
 
         # MIRROR structure: when the running cost's u-block is diagonal and
         # decoupled from x, mirror(blkdiag(D, Hxx)) =
@@ -161,24 +185,16 @@ class SQPSolver:
                 return False
         return True
 
-    def _mirror(self, H):
+    def _mirror(self, H, lm):
         """MIRROR of a [M, n, n] stack on the configured backend."""
         if self.qp_backend == "cuda":
-            return mirror_cuda(H, self.lm)
-        return mirror_unpacked(H, self.lm)
+            return mirror_cuda(H, lm)
+        return mirror_unpacked(H, lm)
 
     def _mirror_nvar(self, H):
         """MIRROR a [M, nvar, nvar] stage-Hessian stack, exploiting the
         u-separable block structure when detected."""
-        if not self._mirror_x_only:
-            return self._mirror(H.contiguous())
-        nu = self.ocp.nu
-        d = torch.diagonal(H[:, :nu, :nu], dim1=-2, dim2=-1).abs().clamp(min=self.lm)
-        Hxx = self._mirror(H[:, nu:, nu:].contiguous())
-        out = H.new_zeros(H.shape)
-        out[:, :nu, :nu] = torch.diag_embed(d)
-        out[:, nu:, nu:] = Hxx
-        return out
+        return mirror_nvar(H, self.lm, self.ocp.nu, self._mirror_x_only, self._mirror)
 
     # -- linearization ----------------------------------------------------
     def _linearize(self, Z, P):
@@ -188,36 +204,26 @@ class SQPSolver:
         ocp = self.ocp
         N, nu, nx, nvar, nh = ocp.N, ocp.nu, ocp.nx, ocp.nvar, ocp.nh
         Bb = Z.shape[0]
-        Zr = Z[:, :N].reshape(Bb * N, nvar)
-        Pr = P[:, :N].reshape(Bb * N, -1)
+        d = stage_derivatives(ocp, Z, P)
+        A = d.Jf[..., nu:]
+        Bm = d.Jf[..., :nu]
+        c = d.f - Z[:, 1:, nu:]
 
-        Jf, f_val = vmap(jacfwd(_with_aux(ocp.dynamics_fn), has_aux=True))(Zr, Pr)
-        Jf = Jf.reshape(Bb, N, nx, nvar)
-        A = Jf[..., nu:]
-        Bm = Jf[..., :nu]
-        c = f_val.reshape(Bb, N, nx) - Z[:, 1:, nu:]
-
-        g_run = vmap(grad(ocp.running_cost))(Zr, Pr).reshape(Bb, N, nvar)
-        H_run = vmap(hessian(ocp.running_cost))(Zr, Pr).reshape(Bb, N, nvar, nvar)
-        zN = ocp.zero_inputs(Z[:, N])
-        g_term = vmap(grad(ocp.terminal_cost))(zN, P[:, N])
-        H_term = vmap(hessian(ocp.terminal_cost))(zN, P[:, N])
         H_last = Z.new_zeros(Bb, 1, nvar, nvar)
-        H_last[:, 0, nu:, nu:] = H_term[:, nu:, nu:]
+        H_last[:, 0, nu:, nu:] = d.H_term[:, nu:, nu:]
         g_last = Z.new_zeros(Bb, 1, nvar)
-        g_last[:, 0, nu:] = g_term[:, nu:]
-        H = torch.cat([H_run, H_last], dim=1)
+        g_last[:, 0, nu:] = d.g_term[:, nu:]
+        H = torch.cat([d.H_run, H_last], dim=1)
         H = self._mirror_nvar(H.reshape(Bb * (N + 1), nvar, nvar)).reshape(Bb, N + 1, nvar, nvar)
-        g = torch.cat([g_run, g_last], dim=1)
+        g = torch.cat([d.g_run, g_last], dim=1)
 
         # Rows per stage: [u-box, x-box, h]; bounds shifted to the iterate.
         D = self._D_box.expand(Bb, N + 1, nu + nx, nvar)
         lb = self._lbz - Z
         ub = self._ubz - Z
         if nh:
-            Jh, h_val = vmap(jacfwd(_with_aux(ocp.constraint_fn), has_aux=True))(Zr, Pr)
-            Jh = torch.cat([Jh.reshape(Bb, N, nh, nvar), Z.new_zeros(Bb, 1, nh, nvar)], dim=1)
-            h_pad = torch.cat([h_val.reshape(Bb, N, nh), Z.new_zeros(Bb, 1, nh)], dim=1)
+            Jh = torch.cat([d.Jh, Z.new_zeros(Bb, 1, nh, nvar)], dim=1)
+            h_pad = torch.cat([d.h, Z.new_zeros(Bb, 1, nh)], dim=1)
             D = torch.cat([D, Jh], dim=2)
             lb = torch.cat([lb, self._lh - h_pad], dim=2)
             ub = torch.cat([ub, self._uh - h_pad], dim=2)
@@ -239,6 +245,8 @@ class SQPSolver:
         P [B, N+1, npar], xinit [B, nx] tensors on the solver's device;
         `warm0` = (lam_l, lam_u, ok [B]) duals from the previous control
         cycle. `escalated` runs every QP at the full cold budget."""
+        if self.rti_fused:
+            return self._solve_batch_fused(Z0, P, xinit, num_iterations, warm0, escalated)
         ocp = self.ocp
         nu = ocp.nu
         sqp_mode = self.solver_type == "SQP"
@@ -269,16 +277,43 @@ class SQPSolver:
                 Z = Z + sol.dz
                 iters = iters + 1
 
+        code, pobj, res_eq = self._exit_codes(Z, P, done if sqp_mode else None)
+        return SolveResult(Z=Z, exit_code=code, pobj=pobj, res_eq=res_eq,
+                           qp_mu=sol.mu, iters=iters, lam_l=sol.lam_l, lam_u=sol.lam_u)
+
+    def _exit_codes(self, Z, P, done=None):
+        """(exit code, pobj, res_eq) of final iterates Z; `done` (SQP mode)
+        marks the elements that converged."""
+        ocp = self.ocp
         res_eq = vmap(ocp.eq_residual)(Z, P)
         pobj = vmap(ocp.total_cost)(Z, P)
         finite = torch.isfinite(res_eq) & torch.isfinite(pobj) & torch.isfinite(Z).all(dim=(1, 2))
         ok = finite & (res_eq <= self.tol_eq)
-        if sqp_mode:
-            code = torch.where(ok & done, EXIT_SUCCESS, torch.where(ok, 0, EXIT_FAILURE))
-        else:
+        if done is None:
             code = torch.where(ok, EXIT_SUCCESS, EXIT_FAILURE)
-        return SolveResult(Z=Z, exit_code=code.to(torch.int32), pobj=pobj, res_eq=res_eq,
-                           qp_mu=sol.mu, iters=iters, lam_l=sol.lam_l, lam_u=sol.lam_u)
+        else:
+            code = torch.where(ok & done, EXIT_SUCCESS, torch.where(ok, 0, EXIT_FAILURE))
+        return code.to(torch.int32), pobj, res_eq
+
+    def _solve_batch_fused(self, Z0, P, xinit, num_iterations: int, warm0=None,
+                           escalated: bool = False) -> SolveResult:
+        """The fused route of `batch_impl`: the whole RTI loop in one launch
+        of K3 (ops/cuda_rti.py; on CPU tensors its plain version), with the
+        unfused loop's warm-start ladder (mpc_planner_tpu/solver/sqp.py:
+        624-670)."""
+        nu = self.ocp.nu
+        Z0 = Z0.clone()
+        Z0[:, 0, nu:] = xinit
+        wi = self.qp_iterations if escalated else self.warm_qp_iters
+        res = solve_rti_cuda(
+            Z0, P, self._stage_code, lb_template=self._lb_template, ub_template=self._ub_template,
+            num_iterations=num_iterations, it0=self.qp_iterations if warm0 is None else wi,
+            warm_iters=wi, mu0=self.mu0, warm_duals=warm0, mehrotra=True,
+            sigma_fixed=self.warm_sigma, lm=self.lm, mirror_x_only=self._mirror_x_only)
+        code, pobj, res_eq = self._exit_codes(res.Z, P)
+        iters = torch.full((Z0.shape[0],), num_iterations, dtype=torch.int32, device=Z0.device)
+        return SolveResult(Z=res.Z, exit_code=code, pobj=pobj, res_eq=res_eq, qp_mu=res.mu,
+                           iters=iters, lam_l=res.lam_l, lam_u=res.lam_u)
 
     # -- public API --------------------------------------------------------
     def _tensor(self, x, dtype=torch.float32):

@@ -7,8 +7,10 @@ default equal the reference's, so both packages build the same OCP from
 the same overrides.
 
 Backend selection differs: the reference's TPU keys (`qp_backend`
-"pallas"/"xla", `qp_wide_blocks`, `rti_fused`, `qp_mirror_in_kernel`)
-give way to one key, `qp_backend: "auto" | "cuda" | "torch"`.
+"pallas"/"xla", `qp_wide_blocks`, `qp_mirror_in_kernel`) give way to
+`qp_backend: "auto" | "cuda" | "torch"`; `rti_fused: "auto" | "on" |
+"off"` keeps the reference's meaning (the fused whole-RTI kernel, on the
+cuda backend; "auto" resolves off).
 """
 
 from __future__ import annotations
@@ -41,9 +43,14 @@ class SolverConfig:
     qp_iterations: int = 9  # IP iterations of a cold QP
     # "cuda": the hand-written Hopper QP + MIRROR kernels (ops/cuda_qp.py);
     # "torch": the plain batched torch path (solver/qp.py); "auto": cuda
-    # when the solver's device is CUDA and nu <= 3 (the closed-form
-    # R-hat inverse in the kernel), else torch.
+    # when the solver's device is CUDA and the QP kernel is instantiated
+    # for (nu, nx) (ops/cuda_qp.py::QP_SHAPES), else torch.
     qp_backend: str = "auto"
+    # "on": with the cuda backend, SQP_RTI and Mehrotra warm QPs, the whole
+    # RTI loop runs in one launch of the fused kernel K3 (ops/cuda_rti.py);
+    # otherwise the unfused loop. "auto" resolves off, as in the reference
+    # (mpc_planner_tpu/solver/sqp.py:195-207).
+    rti_fused: str = "auto"
     solver_type: str = "SQP_RTI"  # or "SQP"
     tol_stationarity: float = 1e-3  # ref settings.yaml tolstat
     tol_eq_residual: float = 1e-2  # res_eq failure check (ref acados_solver_interface.cpp:176-181)

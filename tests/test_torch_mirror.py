@@ -79,4 +79,4 @@ def test_mirror_wrapper_on_cpu_is_plain():
     cuda_qp.reset_launch_counts()
     H = torch.as_tensor(_sym_stack(10, 5, seed=3))
     torch.testing.assert_close(cuda_qp.mirror_cuda(H, 1e-6), mirror_unpacked(H, 1e-6), rtol=0, atol=0)
-    assert cuda_qp.launch_counts == {"qp": 0, "mirror": 0}
+    assert not any(cuda_qp.launch_counts.values())

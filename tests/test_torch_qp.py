@@ -152,4 +152,4 @@ def test_qp_wrapper_on_cpu_is_plain(case):
     b = solve_qp(qp, model.nu, model.nx, iterations=3)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert cuda_qp.launch_counts == {"qp": 0, "mirror": 0}
+    assert not any(cuda_qp.launch_counts.values())
