@@ -125,6 +125,12 @@ def get_dummy_obstacle(state) -> HostObstacle:
     )
 
 
+def remove_distant_obstacles(obstacles: List[HostObstacle], state, max_distance: float) -> List[HostObstacle]:
+    """Ref data_preparation.cpp removeDistantObstacles."""
+    pos = state.get_position()
+    return [o for o in obstacles if np.linalg.norm(pos - o.position) < max_distance]
+
+
 def ensure_obstacle_size(
     obstacles: List[HostObstacle], state, max_obstacles: int, N: int, dt: float, probabilistic: bool
 ) -> List[HostObstacle]:
@@ -171,6 +177,12 @@ def propagate_prediction_uncertainty(pred: HostPrediction, dt: float, N: int) ->
             minor = np.sqrt(minor**2 + (pred.minor[m, k] * dt) ** 2)
             pred.major[m, k] = major
             pred.minor[m, k] = minor
+
+
+def propagate_all_uncertainty(obstacles: List[HostObstacle], dt: float, N: int) -> None:
+    for o in obstacles:
+        if o.prediction is not None:
+            propagate_prediction_uncertainty(o.prediction, dt, N)
 
 
 def pack_obstacles(obstacles: List[HostObstacle], N: int) -> ObstacleBlock:

@@ -16,7 +16,7 @@ Conventions (identical to the reference):
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -43,6 +43,7 @@ class DynamicsModel:
     inputs: Sequence[str] = ()
     lower_bound: Sequence[float] = ()
     upper_bound: Sequence[float] = ()
+    width: float = 0.65  # collision width [m], used by contouring constraints
 
     @property
     def nu(self) -> int:
@@ -67,6 +68,11 @@ class DynamicsModel:
 
     def get(self, z, name: str):
         return z[..., self.index(name)]
+
+    def get_bounds(self, name: str) -> Tuple[float, float, float]:
+        """(lower, upper, upper - lower) of a state or input."""
+        i = self.index(name)
+        return self.lower_bound[i], self.upper_bound[i], self.upper_bound[i] - self.lower_bound[i]
 
     def save_map(self) -> dict:
         """model_map.yaml contract (ref solver_model.py:118-128)."""

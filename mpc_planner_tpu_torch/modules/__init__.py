@@ -5,9 +5,12 @@ from mpc_planner_tpu_torch.modules.base import (
     ModuleManager,
     ObjectiveModule,
 )
+from mpc_planner_tpu_torch.modules.contouring import ContouringModule
 from mpc_planner_tpu_torch.modules.ellipsoid_constraints import EllipsoidConstraintModule
 from mpc_planner_tpu_torch.modules.goal import GoalModule
+from mpc_planner_tpu_torch.modules.guidance_constraints import GuidanceConstraintModule
 from mpc_planner_tpu_torch.modules.mpc_base import MPCBaseModule
+from mpc_planner_tpu_torch.modules.path_reference_velocity import PathReferenceVelocityModule
 
 __all__ = [
     "Module",
@@ -17,5 +20,8 @@ __all__ = [
     "BoundModel",
     "MPCBaseModule",
     "GoalModule",
+    "ContouringModule",
+    "PathReferenceVelocityModule",
     "EllipsoidConstraintModule",
+    "GuidanceConstraintModule",
 ]

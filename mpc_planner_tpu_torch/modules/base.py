@@ -50,6 +50,13 @@ class BoundModel:
     def get_or(self, name: str, default=0.0):
         return self.get(name) if self.has(name) else default
 
+    @property
+    def width(self) -> float:
+        return self._model.width
+
+    def get_bounds(self, name: str):
+        return self._model.get_bounds(name)
+
 
 class Module:
     """Base module; see class docstring above for the two halves."""
@@ -81,6 +88,10 @@ class Module:
     def upper_bounds(self) -> List[float]:
         return []
 
+    @property
+    def nh(self) -> int:
+        return len(self.lower_bounds())
+
     # -- host half (ref controller_module.h API) -------------------------
     def update(self, state, data, module_data) -> None:
         pass
@@ -111,6 +122,12 @@ class Module:
         the default solver, or a result dict to take over the solve
         (T-MPC++ / SH-MPC)."""
         return None
+
+    def save_data(self, record: dict) -> None:
+        """Per-cycle metric export hook (ref controller_module.h:120-125
+        saveData(DataSaver&)): write module metrics into one iteration
+        record. Keys should be prefixed with the module's name to avoid
+        collisions."""
 
 
 class ObjectiveModule(Module):
@@ -179,6 +196,9 @@ class ModuleManager:
                 out.extend(module.upper_bounds())
         return np.asarray(out, dtype=float)
 
+    def constraint_number(self) -> int:
+        return sum(m.nh for m in self.modules if m.module_type == "constraint")
+
     # -- host orchestration (ref planner.cpp loops) -----------------------
     def is_data_ready(self, data) -> Tuple[bool, str]:
         ready = True
@@ -194,6 +214,14 @@ class ModuleManager:
     def update_all(self, state, data, module_data) -> None:
         for m in self.modules:
             m.update(state, data, module_data)
+
+    def save_data_all(self) -> dict:
+        """Collect every module's saveData metrics for one iteration
+        record (ref planner.cpp saveData loop over modules)."""
+        record: dict = {}
+        for m in self.modules:
+            m.save_data(record)
+        return record
 
     def set_parameters_all(self, data, module_data, pblock: ParameterBlock) -> None:
         for m in self.modules:

@@ -8,8 +8,12 @@
 
 #if defined(__CUDACC__)
 #define MPC_HD __host__ __device__ __forceinline__
+// The generated stage functions: each gets its own register allocation
+// (the flagship's running cost blends 5 spline segments on Dual2 numbers).
+#define MPC_STAGE __host__ __device__ __noinline__
 #else
 #define MPC_HD inline
+#define MPC_STAGE inline
 #endif
 
 namespace mpc {

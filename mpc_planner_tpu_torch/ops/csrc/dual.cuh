@@ -26,7 +26,26 @@ MPC_HD float mcos(float x) { return cosf(x); }
 MPC_HD float msqrt(float x) { return sqrtf(x); }
 MPC_HD float mrecip(float x) { return 1.0f / x; }
 MPC_HD float msq(float x) { return x * x; }
+MPC_HD float mcube(float x) { return x * x * x; }
 MPC_HD float mpow(float x, float e) { return powf(x, e); }
+// Overflow-safe logistic function (the form of jax.nn.sigmoid): exp of a
+// non-positive argument only, so no inf/inf.
+MPC_HD float msigmoid(float x) {
+  if (x >= 0.0f) return 1.0f / (1.0f + expf(-x));
+  const float e = expf(x);
+  return e / (1.0f + e);
+}
+// Floor mod a - b*floor(a/b), computed as torch.remainder (and jnp.mod) do:
+// fmod, exact, then moved into b's sign.
+MPC_HD float mrem(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  return m;
+}
+// torch.clamp(x, min=lo): NaN stays NaN.
+MPC_HD float mclamp_min(float x, float lo) { return max_nan(x, lo); }
+// The value part, for predicates (comparisons look at values only).
+MPC_HD float mval(float x) { return x; }
 
 // -- first order ----------------------------------------------------------
 template <int N>
@@ -148,9 +167,30 @@ MPC_HD Dual<N> mrecip(const Dual<N>& a) {
 template <int N>
 MPC_HD Dual<N> msq(const Dual<N>& a) { return chain1(a, a.v * a.v, 2.0f * a.v); }
 template <int N>
+MPC_HD Dual<N> mcube(const Dual<N>& a) { return chain1(a, a.v * a.v * a.v, 3.0f * a.v * a.v); }
+template <int N>
 MPC_HD Dual<N> mpow(const Dual<N>& a, float e) {
   return chain1(a, powf(a.v, e), e * powf(a.v, e - 1.0f));
 }
+// sigma' = sigma (1 - sigma)
+template <int N>
+MPC_HD Dual<N> msigmoid(const Dual<N>& a) {
+  const float s = msigmoid(a.v);
+  return chain1(a, s, s * (1.0f - s));
+}
+// d(a mod b)/da = 1 (b a constant)
+template <int N>
+MPC_HD Dual<N> mrem(const Dual<N>& a, float b) {
+  Dual<N> r = a;
+  r.v = mrem(a.v, b);
+  return r;
+}
+// below lo: the constant lo (no derivative); else a (torch passes the
+// gradient where x >= min)
+template <int N>
+MPC_HD Dual<N> mclamp_min(const Dual<N>& a, float lo) { return a.v < lo ? Dual<N>(lo) : a; }
+template <int N>
+MPC_HD float mval(const Dual<N>& a) { return a.v; }
 
 // -- second order ---------------------------------------------------------
 // h holds the upper triangle row by row: (i, j), i <= j, at hidx(i, j).
@@ -313,8 +353,28 @@ MPC_HD Dual2<N> mrecip(const Dual2<N>& a) {
 template <int N>
 MPC_HD Dual2<N> msq(const Dual2<N>& a) { return chain2(a, a.v * a.v, 2.0f * a.v, 2.0f); }
 template <int N>
+MPC_HD Dual2<N> mcube(const Dual2<N>& a) {
+  return chain2(a, a.v * a.v * a.v, 3.0f * a.v * a.v, 6.0f * a.v);
+}
+template <int N>
 MPC_HD Dual2<N> mpow(const Dual2<N>& a, float e) {
   return chain2(a, powf(a.v, e), e * powf(a.v, e - 1.0f), e * (e - 1.0f) * powf(a.v, e - 2.0f));
 }
+// sigma' = sigma (1 - sigma), sigma'' = sigma' (1 - 2 sigma)
+template <int N>
+MPC_HD Dual2<N> msigmoid(const Dual2<N>& a) {
+  const float s = msigmoid(a.v), d1 = s * (1.0f - s);
+  return chain2(a, s, d1, d1 * (1.0f - 2.0f * s));
+}
+template <int N>
+MPC_HD Dual2<N> mrem(const Dual2<N>& a, float b) {
+  Dual2<N> r = a;
+  r.v = mrem(a.v, b);
+  return r;
+}
+template <int N>
+MPC_HD Dual2<N> mclamp_min(const Dual2<N>& a, float lo) { return a.v < lo ? Dual2<N>(lo) : a; }
+template <int N>
+MPC_HD float mval(const Dual2<N>& a) { return a.v; }
 
 }  // namespace mpc

@@ -51,27 +51,45 @@ _UNARY = {
     _aten.sqrt.default: "msqrt({})",
     _aten.sin.default: "msin({})",
     _aten.cos.default: "mcos({})",
+    _aten.sigmoid.default: "msigmoid({})",
 }
 _BINARY = {
     _aten.add.Tensor: "{} + {}",
     _aten.sub.Tensor: "{} - {}",
     _aten.mul.Tensor: "{} * {}",
     _aten.div.Tensor: "{} / {}",
+    _aten.rsub.Scalar: "{1} - {0}",
+    _aten.remainder.Scalar: "mrem({}, {})",  # floor mod; the derivative is a's
 }
-_SHAPE_OPS = (_aten.select.int, _aten.slice.Tensor, _aten.stack.default,
-              _aten.new_zeros.default, _aten.zeros_like.default, _aten.pow.Tensor_Scalar)
-SUPPORTED_OPS = sorted(str(op) for op in (*_UNARY, *_BINARY, *_SHAPE_OPS))
+# Comparisons give one bool per scalar, evaluated on the value part of a
+# dual number (mval); a predicate of p only stays a plain float branch.
+_COMPARE = {
+    _aten.ge.Scalar: "mval({}) >= {}",
+    _aten.gt.Scalar: "mval({}) > {}",
+    _aten.lt.Scalar: "mval({}) < {}",
+}
+_LOGICAL = {
+    _aten.bitwise_and.Tensor: "{} && {}",
+    _aten.bitwise_not.default: "!{}",
+}
+_SHAPE_OPS = (_aten.select.int, _aten.slice.Tensor, _aten.stack.default, _aten.unsqueeze.default,
+              _aten.new_zeros.default, _aten.zeros_like.default, _aten.ones_like.default,
+              _aten.scalar_tensor.default, _aten.pow.Tensor_Scalar, _aten.sum.dim_IntList,
+              _aten.where.self, _aten.clamp.default)
+SUPPORTED_OPS = sorted(str(op) for op in (*_UNARY, *_BINARY, *_COMPARE, *_LOGICAL, *_SHAPE_OPS))
 
 
 class _Sym:
     """One scalar of the generated code: a C++ expression (a variable, an
-    input entry or a literal) and whether it depends on z."""
+    input entry or a literal), whether it depends on z, and whether it is
+    a bool (a predicate)."""
 
-    __slots__ = ("code", "dual")
+    __slots__ = ("code", "dual", "pred")
 
-    def __init__(self, code: str, dual: bool):
+    def __init__(self, code: str, dual: bool, pred: bool = False):
         self.code = code
         self.dual = dual
+        self.pred = pred
 
 
 class _Param:
@@ -92,6 +110,7 @@ def _literal(c) -> str:
 
 
 _ZERO = _Sym("0.0f", False)
+_ONE = _Sym("1.0f", False)
 
 
 def _array(shape, fill) -> np.ndarray:
@@ -144,12 +163,13 @@ class _Function:
         self.outputs = [self._scalar(s) for s in outputs]
 
     # -- scalars -------------------------------------------------------------
-    def _var(self, expr: str, dual: bool, *deps: _Sym) -> _Sym:
+    def _var(self, expr: str, dual: bool, *deps: _Sym, pred: bool = False) -> _Sym:
         name = f"v{len(self.lines)}"
-        self.lines.append((name, f"const {'T' if dual else 'float'} {name} = {expr};",
+        ctype = "bool" if pred else ("T" if dual else "float")
+        self.lines.append((name, f"const {ctype} {name} = {expr};",
                            [d.code for d in deps if d.code in self.defined]))
         self.defined.add(name)
-        return _Sym(name, dual)
+        return _Sym(name, dual, pred)
 
     def _scalar(self, x) -> _Sym:
         if isinstance(x, _Sym):
@@ -168,7 +188,43 @@ class _Function:
 
     def _binary(self, fmt: str, x, y) -> _Sym:
         a, b = self._scalar(x), self._scalar(y)
+        if a.pred or b.pred:
+            raise ValueError(f"{self.name}: arithmetic on a predicate ({fmt})")
         return self._var(fmt.format(a.code, b.code), a.dual or b.dual, a, b)
+
+    def _compare(self, fmt: str, x, c) -> _Sym:
+        a = self._scalar(x)
+        return self._var(fmt.format(a.code, _literal(c)), False, a, pred=True)
+
+    def _logical(self, fmt: str, *xs) -> _Sym:
+        syms = [self._scalar(x) for x in xs]
+        if not all(v.pred for v in syms):
+            raise ValueError(f"{self.name}: {fmt} on a non-predicate")
+        return self._var(fmt.format(*(v.code for v in syms)), False, *syms, pred=True)
+
+    def _where(self, c, x, y) -> _Sym:
+        cond, a, b = self._scalar(c), self._scalar(x), self._scalar(y)
+        if not cond.pred:
+            raise ValueError(f"{self.name}: where on a non-predicate condition")
+        if a.dual or b.dual:  # both branches as T: value and derivative of the chosen one
+            return self._var(f"{cond.code} ? T({a.code}) : T({b.code})", True, cond, a, b)
+        return self._var(f"{cond.code} ? {a.code} : {b.code}", False, cond, a, b)
+
+    def _sum(self, x: np.ndarray, dims, keepdim: bool) -> np.ndarray:
+        """Sum over `dims`, left to right."""
+        dims = sorted(d % x.ndim for d in ([dims] if isinstance(dims, int) else dims))
+        moved = np.moveaxis(x, dims, list(range(x.ndim - len(dims), x.ndim)))
+        rest = moved.shape[: x.ndim - len(dims)]
+        flat = moved.reshape(rest + (-1,))
+        out = _array(rest, None)
+        for idx in np.ndindex(*rest):
+            acc = flat[idx][0]
+            for v in flat[idx][1:]:
+                acc = self._binary("{} + {}", acc, v)
+            out[idx] = acc
+        if keepdim:
+            out = np.expand_dims(out, tuple(dims))
+        return out
 
     # -- graph nodes -----------------------------------------------------------
     def _call(self, node, env) -> np.ndarray:
@@ -185,8 +241,8 @@ class _Function:
         placement = ("pin_memory", "device", "dtype", "layout")  # of new_zeros / zeros_like
         kwargs = {k: arg(v) for k, v in node.kwargs.items() if k not in placement}
         val = node.meta.get("val")
-        if not isinstance(val, torch.Tensor) or val.dtype != torch.float32:
-            raise ValueError(f"{self.name}: {op} does not give one float32 tensor")
+        if not isinstance(val, torch.Tensor) or val.dtype not in (torch.float32, torch.bool):
+            raise ValueError(f"{self.name}: {op} does not give one float32 or bool tensor")
 
         if op in _BINARY:
             if kwargs.get("alpha", 1) != 1 or set(kwargs) - {"alpha"}:
@@ -196,9 +252,32 @@ class _Function:
         elif op in _UNARY:
             fmt = _UNARY[op]
             out = np.frompyfunc(lambda x: self._unary(fmt, x), 1, 1)(args[0])
+        elif op in _COMPARE:
+            fmt = _COMPARE[op]
+            x, c = args
+            out = np.frompyfunc(lambda v: self._compare(fmt, v, c), 1, 1)(x)
+        elif op in _LOGICAL:
+            fmt = _LOGICAL[op]
+            out = np.frompyfunc(lambda *v: self._logical(fmt, *v), len(args), 1)(*args)
+        elif op is _aten.where.self:
+            out = np.frompyfunc(self._where, 3, 1)(*args)
+        elif op is _aten.clamp.default:
+            # clamp(x, min) only: max_nan keeps NaN, and the derivative passes
+            # where x >= min, as torch's
+            x, lo, hi = (args + [None, None])[:3]
+            if lo is None or hi is not None or kwargs:
+                raise ValueError(f"{self.name}: clamp with {args[1:]} {kwargs} is not supported")
+            fmt = "mclamp_min({}, " + _literal(lo) + ")"
+            out = np.frompyfunc(lambda v: self._unary(fmt, v), 1, 1)(x)
+        elif op is _aten.sum.dim_IntList:
+            x, dims, keepdim = (args + [None, False])[:3]
+            if kwargs or dims is None:
+                raise ValueError(f"{self.name}: sum with {args[1:]} {kwargs} is not supported")
+            out = self._sum(_as_array(x), dims, keepdim)
         elif op is _aten.pow.Tensor_Scalar:
+            # x*x and x*x*x, as torch computes exponents 2 and 3
             x, e = args
-            fmt = "msq({})" if e == 2 else "mpow({}, " + _literal(e) + ")"
+            fmt = {2: "msq({})", 3: "mcube({})"}.get(e, "mpow({}, " + _literal(e) + ")")
             out = np.frompyfunc(lambda v: self._unary(fmt, v), 1, 1)(x)
         elif op is _aten.select.int:
             x, dim, index = args
@@ -212,8 +291,15 @@ class _Function:
         elif op is _aten.stack.default:
             tensors, dim = (args + [0])[:2]
             out = np.stack([_as_array(t) for t in tensors], axis=dim)
+        elif op is _aten.unsqueeze.default:
+            x, dim = args
+            out = np.expand_dims(_as_array(x), dim)
         elif op in (_aten.new_zeros.default, _aten.zeros_like.default):
             out = _array(val.shape, _ZERO)
+        elif op is _aten.ones_like.default:
+            out = _array(val.shape, _ONE)
+        elif op is _aten.scalar_tensor.default:
+            out = _Sym(_literal(args[0]), False)
         else:
             raise ValueError(
                 f"{self.name}: aten op {op} is not supported by the stage-code generator "
@@ -245,7 +331,7 @@ class _Function:
         body += late
         lines = [
             "  template <class T, class PA, class Out>",
-            f"  static MPC_HD void {self.name}(const T* z, const PA& p, const Out& out) {{",
+            f"  static MPC_STAGE void {self.name}(const T* z, const PA& p, const Out& out) {{",
         ]
         lines += [f"    {line}" for line in body]
         lines.append("  }")
@@ -277,7 +363,12 @@ class StageCode:
 
     def generate(self) -> str:
         """The `mpc::Stages` struct: dimensions and one templated function
-        per stage function."""
+        per stage function. make_fx is not thread-safe: one thread traces
+        at a time (builds of other OCPs go on meanwhile)."""
+        with _trace_lock:
+            return self._generate()
+
+    def _generate(self) -> str:
         if self._struct is None:
             ocp = self.ocp
             fns = [("dynamics", ocp.dynamics_fn), ("running_cost", ocp.running_cost),
@@ -287,7 +378,7 @@ class StageCode:
             bodies = [_Function(name, fn, ocp.nvar, ocp.npar).emit() for name, fn in fns]
             if not ocp.nh:  # nh = 0: a constraint function with no rows
                 bodies.append("  template <class T, class PA, class Out>\n"
-                              "  static MPC_HD void constraints(const T*, const PA&, const Out&) {}")
+                              "  static MPC_STAGE void constraints(const T*, const PA&, const Out&) {}")
             self._struct = "\n".join([
                 "// Generated by mpc_planner_tpu_torch/ops/stage_codegen.py from the stage",
                 f"// functions of one OCP ({type(ocp.model).__name__}; modules: "
@@ -314,7 +405,9 @@ class StageCode:
         return f'{self.generate()}\n#include "{entry}"\n'
 
 
+_trace_lock = threading.Lock()
 _libs = {}
+_build_locks = {}  # one lock per library: different OCPs build in parallel
 _libs_lock = threading.Lock()
 
 
@@ -325,8 +418,11 @@ def load_library(code: StageCode, target: str = "cuda", build_dir: str = BUILD_D
     src = code.source(target)
     digest = hashlib.sha256((src + _header_digest()).encode()).hexdigest()[:16]
     name = f"mpc_{'rti' if target == 'cuda' else 'stage_eval'}_{digest}"
+    key = (name, build_dir)
     with _libs_lock:
-        lib = _libs.get((name, build_dir))
+        lock = _build_locks.setdefault(key, threading.Lock())
+    with lock:
+        lib = _libs.get(key)
         if lib is None:
             directory = os.path.join(build_dir, name)
             os.makedirs(directory, exist_ok=True)
@@ -336,7 +432,7 @@ def load_library(code: StageCode, target: str = "cuda", build_dir: str = BUILD_D
                 with open(path, "w") as f:
                     f.write(src)
             lib = load_c_library(name, [path], directory, verbose)
-            _libs[(name, build_dir)] = lib
+            _libs[key] = lib
     return lib
 
 

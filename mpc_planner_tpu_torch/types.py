@@ -95,6 +95,8 @@ class RealTimeData:
         self.robot_area: list = []  # list of (offset, radius)
         self.dynamic_obstacles: list = []  # list of HostObstacle
         self.reference_path: Optional[Dict[str, np.ndarray]] = None
+        self.left_bound: Optional[np.ndarray] = None  # [P, 2]
+        self.right_bound: Optional[np.ndarray] = None  # [P, 2]
         self.goal: Optional[np.ndarray] = None  # [2]
         self.goal_received: bool = False
         self.planning_start_time: float = 0.0
@@ -113,6 +115,9 @@ class ModuleData:
     (ref mpc_planner_types/module_data.h:21-34)."""
 
     def __init__(self):
+        self.static_obstacles: Optional[np.ndarray] = None  # [N, H, 3] rows (a1, a2, b)
+        self.path = None  # PathSpline2D
+        self.current_path_segment: int = 0
         self.warmstart: Optional[np.ndarray] = None  # [N+1, nvar] ego prediction
         self.warmstart_xy: Optional[np.ndarray] = None  # [N+1, 2]
         self.warmstart_psi: Optional[np.ndarray] = None  # [N+1]

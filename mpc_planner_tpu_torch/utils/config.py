@@ -22,13 +22,52 @@ from typing import Any, Dict
 
 @dataclass(frozen=True)
 class ContouringConfig:
+    num_segments: int = 5
     dynamic_velocity_reference: bool = False
+    add_road_constraints: bool = True
+    preview: float = 0.0
+
+
+@dataclass(frozen=True)
+class TMPCConfig:
+    """T-MPC++ settings (ref settings.yaml:63-67; the reference's comments
+    on each choice are in mpc_planner_tpu/utils/config.py)."""
+
+    use_tmpc_pp: bool = True  # include the non-guided planner in parallel
+    enable_constraints: bool = True  # homotopy halfspace constraints
+    warmstart_with_mpc_solution: bool = False
+    n_paths: int = 4  # homotopy classes (ref guidance_planner.yaml:11)
+    samples_per_class: int = 1  # warmstart variations per class (batch axis)
+    selection_weight_consistency: float = 0.75  # bonus for previously chosen class
+    # Extra decelerate-to-stop guidance class (opt-in, selection-gated to
+    # emergencies only).
+    braking_class: bool = False
+    braking_deceleration: float = 2.0  # [m/s^2]
+    # "lateral" (default): homotopy classes constructed in the path frame
+    # (guidance/homotopy.py); "prm": a seeded space-time Visibility-PRM
+    # (guidance/prm.py); "sampled" (device sweep) is not ported.
+    guidance_backend: str = "lateral"
+    sampled_n_samples: int = 512
+    prm_n_samples: int = 30  # ref guidance_planner.yaml n_samples
+    prm_seed: int = 1  # ref guidance_planner.yaml seed
+    prm_max_velocity: float = 3.0  # edge velocity budget [m/s]
+    prm_margin: float = 0.1  # extra clearance in collision checks [m]
+    prm_n_goals: int = 5  # lateral goal fan per longitudinal station
+    prm_n_goals_longitudinal: int = 3
+    prm_spline_smoothing: bool = True
+    prm_goal_length_weight: float = 2.0  # shortfall penalty per meter
 
 
 @dataclass(frozen=True)
 class ProbabilisticConfig:
     enable: bool = True
     risk: float = 0.05
+
+
+@dataclass(frozen=True)
+class RoadConfig:
+    two_way: bool = False
+    width: float = 6.0
 
 
 @dataclass(frozen=True)
@@ -86,6 +125,7 @@ class Config:
     integrator_step: float = 0.2  # [s]
     n_discs: int = 1
     max_obstacles: int = 12
+    robot_radius: float = 0.325
     obstacle_radius: float = 0.4
     control_frequency: float = 20.0  # [Hz]
     enable_output: bool = True
@@ -94,9 +134,12 @@ class Config:
     debug_limits: bool = False
 
     robot: RobotConfig = field(default_factory=RobotConfig)
+    road: RoadConfig = field(default_factory=RoadConfig)
     contouring: ContouringConfig = field(default_factory=ContouringConfig)
+    t_mpc: TMPCConfig = field(default_factory=TMPCConfig)
     probabilistic: ProbabilisticConfig = field(default_factory=ProbabilisticConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
+    linearized_add_halfspaces: int = 0  # ref settings.yaml linearized_constraints
 
     # Runtime-tunable weights (ref settings.yaml:76-91), streamed into the
     # parameter block each cycle.

@@ -41,6 +41,12 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return sy * a
 
 
+def haar_difference_without_abs(angle1, angle2):
+    """Signed angle difference wrapped to [-pi, pi) (ref util/math.py:
+    10-11). torch.remainder is a floor mod, as jnp.mod is."""
+    return torch.remainder(angle1 - angle2 + math.pi, 2.0 * math.pi) - math.pi
+
+
 def exponential_quantile(lam: float, p: float) -> float:
     """Quantile of Exp(lam) — ros_tools ExponentialQuantile, used for the
     Gaussian->ellipsoid chi multiplier (ellipsoid_constraints.cpp:80)."""

@@ -5,6 +5,9 @@ imports only the port; run it there without the JAX conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+Shapes: system_jackal("goal") (N=30, nh=12) and the T-MPC++ flagship
+OCP (configuration_tmpc at N=20, nh=24, nrows=31: the batch workload).
+
 Tolerances: MIRROR 1e-5 of max |H| (same rotations, FMA rounding only);
 QP 5e-3 of max |ref| on dz and lambda (closed-form R-hat inverse and a
 carried D zeta in the kernel vs Cholesky and a recomputed D zeta in the
@@ -107,6 +110,47 @@ def test_qp_kernel_matches_plain(jackal, warm, mehrotra):
     qp = jackal["qp_next"] if warm else jackal["qp"]
     kw = dict(iterations=4 if warm else 9, mehrotra=mehrotra,
               warm_duals=jackal["warm"] if warm else None)
+    ref = solve_qp(qp, m.nu, m.nx, **kw)
+    cuda_qp.reset_launch_counts()
+    out = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, **kw)
+    torch.cuda.synchronize()
+    assert cuda_qp.launch_counts["qp"] == 1
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        assert _rel(getattr(out, f), getattr(ref, f)) < 5e-3, f
+
+
+@pytest.fixture(scope="module")
+def flagship(device):
+    """QPs of the flagship OCP (configuration_tmpc, N=20, nh=24) around
+    perturbed converged plans of the batch workload's instance, and the
+    next RTI iteration's QPs with warm duals."""
+    cfg = default_config(N=20)
+    cfg = cfg.replace(solver=cfg.solver.__class__(qp_backend="torch"))
+    model, ocp, Z0, P, x0 = presets.flagship_problem(cfg)
+    assert (ocp.nh, ocp.nvar + ocp.nh) == (24, 31)
+    solver = SQPSolver(ocp, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    Z0 = torch.as_tensor(Z0, dtype=torch.float32, device=device).expand(B, -1, -1).clone()
+    Z0[:, 1:, model.nu:] += 0.05 * torch.randn(Z0[:, 1:, model.nu:].shape, device=device, generator=g)
+    P = torch.as_tensor(P, dtype=torch.float32, device=device).expand(B, -1, -1)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device).expand(B, -1)
+    Zs = solver.batch_impl(Z0, P, x0, 10).Z
+    Zp = Zs + 0.01 * torch.randn(Zs.shape, device=device, generator=g)
+    qp = solver._linearize(Zp, P)
+    first = solve_qp(qp, model.nu, model.nx, iterations=9)
+    qp_next = solver._linearize(Zp + first.dz, P)
+    return dict(model=model, qp=qp, qp_next=qp_next,
+                warm=(first.lam_l, first.lam_u, first.mu < 1e-2))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold_mehrotra", "warm_fixed_sigma"])
+def test_qp_kernel_flagship_matches_plain(flagship, warm):
+    """K1's general-row path at nh=24: cold with Mehrotra, warm duals with
+    a fixed sigma (the RTI loop's two kinds of QP)."""
+    m = flagship["model"]
+    qp = flagship["qp_next"] if warm else flagship["qp"]
+    kw = dict(iterations=4 if warm else 9, mehrotra=not warm,
+              warm_duals=flagship["warm"] if warm else None)
     ref = solve_qp(qp, m.nu, m.nx, **kw)
     cuda_qp.reset_launch_counts()
     out = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, **kw)

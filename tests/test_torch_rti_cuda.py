@@ -6,6 +6,11 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_rti_cuda.py
 
+Shapes: system_jackal("goal") (N=30, nh=12), goal tracking with nh=0,
+and the T-MPC++ flagship OCP (configuration_tmpc at N=20, nh=24: its
+generated stage code blends 5 spline segments, with sigmoid, where,
+clamp and remainder).
+
 Tolerances: K3 5e-3 of max |Z| (the reference's fused-vs-XLA bound,
 tests/test_pallas_rti.py:96-98) and at most one element of the batch with
 another exit code; its linearization 1e-4 of max |ref| (the same
@@ -136,8 +141,8 @@ def test_linearize_kernel_matches_unfused(jackal):
                          ub_template=s._ub_template, lm=s.lm, mirror_x_only=s._mirror_x_only)
     torch.cuda.synchronize()
     keep = torch.ones_like(ref.H)
-    keep[:, N, :nu, :] = 0
-    keep[:, N, :, :nu] = 0
+    keep[:, -1, :nu, :] = 0
+    keep[:, -1, :, :nu] = 0
     assert _rel(out.H * keep, ref.H * keep) < 1e-4
     for f in ("g", "A", "B", "c"):
         assert _rel(getattr(out, f), getattr(ref, f)) < 1e-4, f
@@ -163,6 +168,39 @@ def test_fused_route_solve_batch_matches_unfused(jackal):
     ref = unfused.solve_batch(*args)
     assert int((res.exit_code != ref.exit_code).sum()) <= 1
     assert float((res.Z - ref.Z).abs().max()) < 5e-3
+
+
+@pytest.fixture(scope="module")
+def flagship(device):
+    """A fused-route solver for the flagship OCP (configuration_tmpc,
+    N=20, nh=24) and a batch of perturbed converged plans of the batch
+    workload's instance (a control loop's warm starts)."""
+    cfg = default_config(N=20)
+    cfg = cfg.replace(solver=cfg.solver.__class__(rti_fused="on"))
+    model, ocp, Z0, P, x0 = presets.flagship_problem(cfg)
+    solver = SQPSolver(ocp, device=device)
+    assert solver.rti_fused and ocp.nh == 24
+    g = torch.Generator(device=device).manual_seed(3)
+    Z0 = torch.as_tensor(Z0, dtype=torch.float32, device=device).expand(B, -1, -1).clone()
+    Z0[:, 1:, model.nu:] += 0.05 * torch.randn(Z0[:, 1:, model.nu:].shape, device=device, generator=g)
+    P = torch.as_tensor(P, dtype=torch.float32, device=device).expand(B, -1, -1)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device).expand(B, -1)
+    Zs = solver.batch_impl(Z0, P, x0, 10).Z
+    Zp = Zs + 0.01 * torch.randn(Zs.shape, device=device, generator=g)
+    Zp[:, 0, model.nu:] = x0
+    kw = dict(lb_template=solver._lb_template, ub_template=solver._ub_template,
+              num_iterations=10, warm_iters=solver.warm_qp_iters, mu0=solver.mu0,
+              sigma_fixed=solver.warm_sigma, lm=solver.lm, mirror_x_only=solver._mirror_x_only)
+    return dict(solver=solver, ocp=ocp, Z0=Zp, P=P, x0=x0, kw=kw)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_rti_kernel_flagship_matches_plain(flagship, warm):
+    test_rti_kernel_matches_plain(flagship, warm)
+
+
+def test_linearize_kernel_flagship_matches_unfused(flagship):
+    test_linearize_kernel_matches_unfused(flagship)
 
 
 def test_rti_wrapper_rejects_bad_input(jackal):

@@ -18,9 +18,17 @@ import torch
 import mpc_planner_tpu.presets as jax_presets
 import mpc_planner_tpu_torch.presets as torch_presets
 from mpc_planner_tpu.parameters import ParameterBlock as JaxParameterBlock
+from mpc_planner_tpu.planner import Planner as JaxPlanner
+from mpc_planner_tpu.solver.ocp import OCP as JaxOCP
+from mpc_planner_tpu.solver.warmstart import initialize_with_state as jax_initialize_with_state
+from mpc_planner_tpu.utils.config import default_config as jax_default_config
 from mpc_planner_tpu.types import ModuleData as JaxModuleData
 from mpc_planner_tpu_torch.parameters import ParameterBlock as TorchParameterBlock
+from mpc_planner_tpu_torch.planner import Planner as TorchPlanner
+from mpc_planner_tpu_torch.solver.ocp import OCP as TorchOCP
+from mpc_planner_tpu_torch.solver.warmstart import initialize_with_state as torch_initialize_with_state
 from mpc_planner_tpu_torch.types import ModuleData as TorchModuleData
+from mpc_planner_tpu_torch.utils.config import default_config as torch_default_config
 
 torch.set_num_threads(1)
 
@@ -85,3 +93,119 @@ def perturbed_warmstarts(Z0: np.ndarray, nu: int, B: int, seed: int = 0, scale: 
     Zb = np.tile(Z0[None], (B, 1, 1)).astype(np.float32)
     Zb[:, 1:, nu:] += rng.normal(0, scale, Zb[:, 1:, nu:].shape).astype(np.float32)
     return Zb
+
+
+def host_pass(pkg: str, cfg, configuration: str = "configuration_tmpc", n_pedestrians: int = 6,
+              seed: int = 7, speed: float = 1.2, scene=None):
+    """One host pass of a preset configuration in package `pkg` ("jax" or
+    "torch") on corridor_scene: `scene(state, data)` may edit the scene
+    first; then update_all around the state-held warm start and the
+    parameter fill. Returns the pieces as a dict (P: the block)."""
+    if pkg == "jax":
+        P, Block, MD, init, OCP = (jax_presets, JaxParameterBlock, JaxModuleData,
+                                   jax_initialize_with_state, JaxOCP)
+    else:
+        P, Block, MD, init, OCP = (torch_presets, TorchParameterBlock, TorchModuleData,
+                                   torch_initialize_with_state, TorchOCP)
+    model, modules = getattr(P, configuration)(cfg)
+    ocp = OCP(model, modules, cfg)
+    state, data = P.corridor_scene(cfg, n_pedestrians=n_pedestrians, seed=seed)
+    state.set("v", speed)
+    if scene is not None:
+        scene(state, data)
+    modules.on_data_received(data, "reference_path")
+    Z0 = init(model, cfg.N, state)
+    md = MD()
+    md.warmstart = Z0
+    md.warmstart_xy = Z0[:, [model.index("x"), model.index("y")]]
+    md.warmstart_psi = Z0[:, model.index("psi")]
+    md.warmstart_spline = Z0[:, model.index("spline")]
+    modules.update_all(state, data, md)
+    pblock = Block(ocp.params, cfg.N + 1)
+    modules.set_parameters_all(data, md, pblock)
+    return dict(model=model, modules=modules, ocp=ocp, state=state, data=data, md=md,
+                P=pblock.data, Z0=Z0)
+
+
+def tmpc_planner_pair(N: int = N_SMALL, solver=None):
+    """configuration_tmpc planners of both packages on corridor_scene(6
+    pedestrians, seed 7), each recording its device steps in `steps`."""
+    solver = SOLVER_SMALL if solver is None else solver
+    jc, tc = jax_default_config(N=N), torch_default_config(N=N)
+    jc = jc.replace(solver=jc.solver.__class__(**solver))
+    tc = tc.replace(solver=tc.solver.__class__(**solver))
+    out = []
+    for P, make, cfg in ((jax_presets, JaxPlanner, jc), (torch_presets, TorchPlanner, tc)):
+        model, modules = P.configuration_tmpc(cfg)
+        planner = make(model, modules, cfg)
+        state, data = P.corridor_scene(cfg, n_pedestrians=6, seed=7)
+        planner.on_data_received(data, "reference_path")
+        out.append(dict(planner=planner, module=modules.get("GuidanceConstraints"), state=state,
+                        data=data, steps=[]))
+    jax_side, torch_side = out
+    _record_jax(jax_side)
+    _record_torch(torch_side)
+    return jax_side, torch_side
+
+
+def _record_jax(side):
+    """Keep (packed, Z of every planner, escalated) of every device step."""
+    module = side["module"]
+    build = module._get_fused_step
+
+    def get_step(*args, escalated=False, **kw):
+        step = build(*args, escalated=escalated, **kw)
+
+        def run(*inputs):
+            out = step(*inputs)
+            side["steps"].append((np.asarray(out[0]), np.asarray(out[1]), escalated))
+            return out
+        return run
+
+    module._get_fused_step = get_step
+
+
+def _record_torch(side):
+    module = side["module"]
+    step = module._fused_step
+
+    def run(*args, escalated=False, **kw):
+        out = step(*args, escalated=escalated, **kw)
+        side["steps"].append((out[0].numpy(), out[1].numpy(), escalated))
+        return out
+
+    module._fused_step = run
+
+
+def compare_tmpc_steps(jax_side, torch_side, atol: float = 5e-3):
+    """Every recorded device step: exit codes, winner, Z of every planner
+    and pobj of the feasible ones."""
+    assert len(torch_side["steps"]) == len(jax_side["steps"]) > 0
+    module = torch_side["module"]
+    B = module.n_planners
+    for (pj, Zj, ej), (pt, Zt, et) in zip(jax_side["steps"], torch_side["steps"]):
+        assert et == ej
+        Zb_j, best_j, found_j, codes_j, pobj_j, _ = module._unpack(pj, B)
+        Zb_t, best_t, found_t, codes_t, pobj_t, _ = module._unpack(pt, B)
+        np.testing.assert_array_equal(codes_t, codes_j)
+        assert (best_t, found_t) == (best_j, found_j)
+        np.testing.assert_allclose(Zt, Zj, atol=atol, rtol=0)
+        np.testing.assert_allclose(Zb_t, Zb_j, atol=atol, rtol=0)
+        ok = codes_j == 1
+        np.testing.assert_allclose(pobj_t[ok], pobj_j[ok], rtol=atol)
+
+
+def tmpc_cycle(jax_side, torch_side, atol: float = 5e-3):
+    """One solve_mpc in both packages; the outcome, the selection record
+    (save_data) and the batch Z agree. Returns the port's output."""
+    outs = [s["planner"].solve_mpc(s["state"], s["data"]) for s in (jax_side, torch_side)]
+    assert outs[1].success == outs[0].success
+    rec_j, rec_t = (s["planner"].modules.save_data_all() for s in (jax_side, torch_side))
+    assert rec_t["guidance_selected_planner"] == rec_j["guidance_selected_planner"]
+    assert rec_t["guidance_n_feasible"] == rec_j["guidance_n_feasible"]
+    np.testing.assert_allclose(rec_t["guidance_best_objective"], rec_j["guidance_best_objective"],
+                               rtol=atol)
+    np.testing.assert_allclose(torch_side["planner"]._Z, jax_side["planner"]._Z, atol=atol, rtol=0)
+    np.testing.assert_allclose(torch_side["module"]._last_batch_Z.numpy(),
+                               np.asarray(jax_side["module"]._last_batch_Z), atol=atol, rtol=0)
+    return outs[1]
