@@ -44,7 +44,7 @@ result then):
  10. SQPSolver.solve_batch through the fused route at B=1024: one cold
      solve and 8 chained warm cycles;
  11. K4, the Riccati probe: each thread mapping vs its plain version
-     (< 1e-3) and timed at 1024 and 131,072 elements;
+     (< 1e-3) and timed at 5, 1024 and 131,072 elements;
  12. the flagship's build: K3 for configuration_tmpc at N=20 and N=30
      (build times; whether they share one build), the native geometry
      library, and the OCP's nh, nrows and npar;
@@ -70,6 +70,11 @@ result then):
      10 RTI): one cold solve and 8 chained warm cycles carrying Z and the
      duals on K1 + K2 and on K3, a cold solve and 2 warm cycles on plain
      torch; mean warm cycle, solves/s and feasible count.
+Every kernel time is printed beside its bound: the least time the card
+could take for the same work (ops/cuda_qp.py::bound_ms over the operation
+and byte counts of qp_work, mirror_work, rti_work and probe_work), and the
+share of it the kernel reaches. No single PyTorch call computes what K1,
+K2, K3 or K4 compute, so none has a library time (null in the record).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -90,6 +95,7 @@ PLANNER_CYCLES = 20
 SEED = 0
 FLAGSHIP_N = 20  # the batch workload's horizon (bench.py)
 PLAIN_WARM_CYCLES = 2
+ROBOT_BATCH = 5  # the flagship planner's batch: 4 homotopy classes + the free planner
 
 
 def check(cond, msg):
@@ -139,6 +145,84 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_record(max_abs_err, ms, plain_ms, work):
+    """One kernel's numbers for the JSON record; `work` = (flops, bytes) of
+    the timed call."""
+    from mpc_planner_tpu_torch.ops.cuda_qp import bound_ms
+
+    bound, bound_by = bound_ms(*work)
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=None)
+
+
+def bound_text(ms, work):
+    """'bound 0.0123 ms by operations (0.45% of it reached)' for a kernel time."""
+    from mpc_planner_tpu_torch.ops.cuda_qp import bound_ms
+
+    bound, bound_by = bound_ms(*work)
+    return f"bound {bound:.3g} ms by {bound_by} ({100 * bound / ms:.3g}% of it reached)"
+
+
+def batch_work(work, batch):
+    return work[0] * batch, work[1] * batch
+
+
+def check_qp(phase, card, plain, Zp, P, fields=("dz", "lam_l", "lam_u")):
+    """K1 vs its plain version (solve_qp) on the QPs that `plain` (a
+    torch-backend SQPSolver) linearizes at the plans Zp: cold + Mehrotra,
+    then the next RTI iteration's QPs with warm duals + a fixed sigma;
+    relative error on `fields` < 5e-3. Both timed. Returns K1's record."""
+    import torch
+
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.solver.qp import solve_qp
+
+    ocp = plain.ocp
+    nu, nx, B, n = ocp.nu, ocp.nx, Zp.shape[0], Zp.shape[1] - 1
+    qp = plain._linearize(Zp, P)
+    qp_iters, wi = plain.qp_iterations, plain.warm_qp_iters
+    ref = solve_qp(qp, nu, nx, iterations=qp_iters, mehrotra=True)
+    out = cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters, mehrotra=True)
+    torch.cuda.synchronize()
+    errs = {f: rel_err(getattr(out, f), getattr(ref, f)) for f in fields}
+    print(f"phase {phase}: QP cold+Mehrotra B={B} N={n} nh={ocp.nh}: rel err "
+          + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()))
+    check(max(errs.values()) < 5e-3, f"QP kernel disagrees with plain (cold, B={B}, N={n}): {errs}")
+    ok = ref.mu < 1e-2
+    qp1 = plain._linearize(Zp + ref.dz, P)
+    warm = (ref.lam_l, ref.lam_u, ok)
+    ref2 = solve_qp(qp1, nu, nx, iterations=wi, warm_duals=warm, mehrotra=False)
+    out2 = cuda_qp.solve_qp_cuda(qp1, nu, nx, iterations=wi, warm_duals=warm, mehrotra=False)
+    torch.cuda.synchronize()
+    errs = {f: rel_err(getattr(out2, f), getattr(ref2, f)) for f in fields}
+    print(f"phase {phase}: QP warm duals ({int(ok.sum())}/{B} ok)+fixed sigma: rel err "
+          + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()))
+    check(max(errs.values()) < 5e-3, f"QP kernel disagrees with plain (warm, B={B}, N={n}): {errs}")
+    work = batch_work(cuda_qp.qp_work(n, nu, nx, ocp.nh, qp_iters), B)
+    ms = cuda_ms(torch, lambda: cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters), 20)
+    plain_ms = cuda_ms(torch, lambda: solve_qp(qp, nu, nx, iterations=qp_iters), 2)
+    print(f"phase {phase}: QP cold solve B={B}, N={n}, nh={ocp.nh}, {qp_iters} IP iterations: "
+          f"kernel {ms:.3f} ms, {bound_text(ms, work)}, plain {plain_ms:.3f} ms [{card}]")
+    if B <= ROBOT_BATCH:  # a lone warp per SM: what the predictor's extra solve and passes cost
+        t = cuda_ms(torch, lambda: cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters,
+                                                         mehrotra=False), 20)
+        print(f"phase {phase}: QP cold solve B={B}, fixed sigma instead of Mehrotra (one linear "
+              f"solve and 7 row passes an iteration instead of two and 12): kernel {t:.3f} ms [{card}]")
+    # Where the launcher changes path: the largest batch whose QPs it stages in
+    # shared memory, and one element more (read from global memory).
+    ext = cuda_qp.load_kernels()
+    resident = ext.qp_resident_blocks(ext.qp_shared_bytes(n, nu, nx, ocp.nh, True))
+    if resident < B:
+        for b in (resident, resident + 1):
+            part = qp._replace(**{f: getattr(qp, f)[:b] for f in qp._fields})
+            t = cuda_ms(torch, lambda: cuda_qp.solve_qp_cuda(part, nu, nx, iterations=qp_iters), 20)
+            where = "staged in shared memory" if b == resident else "read from global memory"
+            print(f"phase {phase}: QP cold solve B={b} ({where}): kernel {t:.3f} ms [{card}]")
+    sys.stdout.flush()
+    max_abs = max(float((out.dz - ref.dz).abs().max()), float((out2.dz - ref2.dz).abs().max()))
+    return kernel_record(max_abs, ms, plain_ms, work)
+
+
 def check_linearization(phase, solver, stage_code, plain_solver, Zp, P):
     """K3's linearization alone (linearize_cuda) vs the unfused
     SQPSolver._linearize at the iterates Zp: max |d| / max |ref| < 1e-4."""
@@ -165,14 +249,15 @@ def check_linearization(phase, solver, stage_code, plain_solver, Zp, P):
     sys.stdout.flush()
 
 
-def check_rti(phase, card, solver, stage_code, Zp, P, x0):
+def check_rti(phase, card, solver, stage_code, Zp, P, x0, with_b1=True):
     """K3 vs its plain version (solve_rti_torch) from the plans Zp, cold
     and then warm (from the plain cold solve with its duals): relative
     error on Z < 5e-3, exit codes differing in <= 1% of the batch; both
-    timed at B and the kernel at B=1. Returns K3's record."""
+    timed at B and (with_b1) the kernel at B=1. Returns K3's record."""
     import torch
 
-    from mpc_planner_tpu_torch.ops.cuda_rti import solve_rti_cuda
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.ops.cuda_rti import load_rti, rti_work, solve_rti_cuda
     from mpc_planner_tpu_torch.ops.rti import solve_rti_torch
     from mpc_planner_tpu_torch.solver.sqp import EXIT_SUCCESS
 
@@ -208,13 +293,27 @@ def check_rti(phase, card, solver, stage_code, Zp, P, x0):
 
     first = compare("cold", Zc, cold)
     compare("warm", first.Z, dict(kw, it0=wi, warm_duals=(first.lam_l, first.lam_u, first.mu < 1e-2)))
-    ms = cuda_ms(torch, lambda: solve_rti_cuda(Zc, P, stage_code, **cold), 3)
+    work = rti_work(stage_code, Zp.shape[1] - 1, RTI_ITERATIONS, solver.qp_iterations, wi,
+                    mirror_x_only=solver._mirror_x_only)
+    ms = cuda_ms(torch, lambda: solve_rti_cuda(Zc, P, stage_code, **cold), 5)
     plain_ms = cuda_ms(torch, lambda: solve_rti_torch(Zc, P, ocp, **cold), 1)
-    ms_b1 = cuda_ms(torch, lambda: solve_rti_cuda(Zc[:1], P[:1], stage_code, **cold), 5)
-    print(f"phase {phase}: K3 cold solve, {RTI_ITERATIONS} RTI: B={B} kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; B=1 kernel {ms_b1:.3f} ms [{card}]")
+    print(f"phase {phase}: K3 cold solve, {RTI_ITERATIONS} RTI, N={Zp.shape[1] - 1}: B={B} kernel "
+          f"{ms:.3f} ms, {bound_text(ms, batch_work(work, B))}, plain {plain_ms:.3f} ms [{card}]")
+    if B > 1 and with_b1:
+        ms_b1 = cuda_ms(torch, lambda: solve_rti_cuda(Zc[:1], P[:1], stage_code, **cold), 10)
+        print(f"phase {phase}: K3 cold solve, {RTI_ITERATIONS} RTI: B=1 kernel {ms_b1:.3f} ms, "
+              f"{bound_text(ms_b1, work)} [{card}]")
+        # Where the launcher changes path (as for K1, phase 13)
+        lib = load_rti(stage_code)
+        resident = cuda_qp.load_kernels().qp_resident_blocks(
+            lib.mpc_rti_shared_bytes(Zp.shape[1] - 1, 1))
+        if resident < B:
+            for b in (resident, resident + 1):
+                t = cuda_ms(torch, lambda: solve_rti_cuda(Zc[:b], P[:b], stage_code, **cold), 5)
+                where = "QP staged in shared memory" if b == resident else "QP in global scratch"
+                print(f"phase {phase}: K3 cold solve B={b} ({where}): kernel {t:.3f} ms [{card}]")
     sys.stdout.flush()
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    return kernel_record(max_abs, ms, plain_ms, batch_work(work, B))
 
 
 def fused_phases(dev, card, stage_code, Z0, P, x0, Zp, plain_solver, make_planner, closed_loop,
@@ -291,13 +390,16 @@ def probe_phase(card, dev):
     for r in rows:
         print(f"phase 11: riccati probe E={r['elements']} {r['mapping']}: max|d| "
               f"{r['max_abs_err']:.2e}, {r['ms'] * 1e3:.1f} us/launch, {r['ns_per_step']:.1f} "
-              f"ns/stage-step/chain ({r['ns_per_step_element']:.4f} ns per element); plain "
-              f"{r['plain_ms']:.2f} ms [{card}]")
+              f"ns/stage-step/chain ({r['ns_per_step_element']:.4f} ns per element), bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['ms']:.2f}% of it reached); plain {r['plain_ms']:.2f} ms "
+              f"[{card}]")
     check(launches > 0, "the probe launched no kernel")
     first = next(r for r in rows if r["mapping"] == "single" and r["elements"] == 1024)
     sys.stdout.flush()
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=first["ms"],
-                plain_ms=first["plain_ms"]), launches
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                library_ms=None), launches
 
 
 def flagship_phases(dev, card, codes, build_s):
@@ -315,7 +417,6 @@ def flagship_phases(dev, card, codes, build_s):
     from mpc_planner_tpu_torch.ops.rti import stage_derivatives
     from mpc_planner_tpu_torch.planner import Planner
     from mpc_planner_tpu_torch.solver.ocp import OCP
-    from mpc_planner_tpu_torch.solver.qp import solve_qp
     from mpc_planner_tpu_torch.solver.sqp import EXIT_SUCCESS, SQPSolver
     from mpc_planner_tpu_torch.utils.config import default_config
 
@@ -352,33 +453,7 @@ def flagship_phases(dev, card, codes, build_s):
     Zp[:, 0, nu:] = x0
 
     # -- 13. K1 and K2 at the flagship shape -------------------------------------------
-    qp = plain._linearize(Zp, P)
-    qp_iters = plain.qp_iterations
-    ref = solve_qp(qp, nu, nx, iterations=qp_iters, mehrotra=True)
-    out = cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters, mehrotra=True)
-    torch.cuda.synchronize()
-    errs = [rel_err(getattr(out, f), getattr(ref, f)) for f in ("dz", "lam_l", "lam_u")]
-    print(f"phase 13: QP cold+Mehrotra B={BATCH} N={FLAGSHIP_N} nh={ocp.nh}: rel err dz {errs[0]:.3e}, "
-          f"lam_l {errs[1]:.3e}, lam_u {errs[2]:.3e}")
-    check(max(errs) < 5e-3, "QP kernel disagrees with plain at the flagship shape (cold)")
-    qp_abs = float((out.dz - ref.dz).abs().max())
-    ok = ref.mu < 1e-2
-    qp1 = plain._linearize(Zp + ref.dz, P)
-    warm = (ref.lam_l, ref.lam_u, ok)
-    wi = plain.warm_qp_iters
-    ref2 = solve_qp(qp1, nu, nx, iterations=wi, warm_duals=warm, mehrotra=False)
-    out2 = cuda_qp.solve_qp_cuda(qp1, nu, nx, iterations=wi, warm_duals=warm, mehrotra=False)
-    torch.cuda.synchronize()
-    errs = [rel_err(getattr(out2, f), getattr(ref2, f)) for f in ("dz", "lam_l", "lam_u")]
-    print(f"phase 13: QP warm duals ({int(ok.sum())}/{BATCH} ok)+fixed sigma: rel err dz "
-          f"{errs[0]:.3e}, lam_l {errs[1]:.3e}, lam_u {errs[2]:.3e}")
-    check(max(errs) < 5e-3, "QP kernel disagrees with plain at the flagship shape (warm)")
-    ms = cuda_ms(torch, lambda: cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters), 5)
-    plain_ms = cuda_ms(torch, lambda: solve_qp(qp, nu, nx, iterations=qp_iters), 2)
-    qp_record = dict(max_abs_err=max(qp_abs, float((out2.dz - ref2.dz).abs().max())), ms=ms,
-                     plain_ms=plain_ms)
-    print(f"phase 13: QP cold solve B={BATCH}, N={FLAGSHIP_N}, nh={ocp.nh}, {qp_iters} IP "
-          f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
+    qp_record = check_qp(13, card, plain, Zp, P)
     # K2 on the same iterates' running-cost Hessians, x-block (the x-only form)
     Hx = stage_derivatives(ocp_t, Zp, P).H_run[:, :, nu:, nu:].reshape(-1, nx, nx).contiguous()
     lm = plain.lm
@@ -387,17 +462,34 @@ def flagship_phases(dev, card, codes, build_s):
     err = float((out_k - out_p).abs().max() / Hx.abs().max())
     ms = cuda_ms(torch, lambda: cuda_qp.mirror_cuda(Hx, lm), 20)
     plain_ms = cuda_ms(torch, lambda: mirror_unpacked(Hx, lm), 3)
-    mirror_record = dict(max_abs_err=float((out_k - out_p).abs().max()), ms=ms, plain_ms=plain_ms)
+    work = batch_work(cuda_qp.mirror_work(nx), Hx.shape[0])
+    mirror_record = kernel_record(float((out_k - out_p).abs().max()), ms, plain_ms, work)
     print(f"phase 13: mirror on the flagship's stage Hessians {list(Hx.shape)}: max|d|/max|H| = "
-          f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+          f"{err:.3e}; kernel {ms:.4f} ms, {bound_text(ms, work)}, plain {plain_ms:.4f} ms [{card}]")
     check(err < 1e-5, f"MIRROR kernel disagrees with plain on the flagship's Hessians: {err}")
     sys.stdout.flush()
+
+    # The robot's own batch: B=5 planners at N=30 (what phase 15's cycles launch).
+    model_r, ocp_r, Z0_r, P0_r, xinit_r = presets.flagship_problem(solver_cfg(N, qp_backend="torch"))
+    plain_r = SQPSolver(ocp_r, device=dev)
+    Zr = np.tile(Z0_r[None], (ROBOT_BATCH, 1, 1)).astype(np.float32)
+    Zr[:, 1:, nu:] += rng.normal(0, 0.05, Zr[:, 1:, nu:].shape).astype(np.float32)
+    P_r = torch.as_tensor(P0_r, dtype=torch.float32, device=dev).expand(ROBOT_BATCH, -1, -1)
+    x0_r = torch.as_tensor(xinit_r, dtype=torch.float32, device=dev).expand(ROBOT_BATCH, -1)
+    Zr = plain_r.batch_impl(torch.as_tensor(Zr, device=dev), P_r, x0_r, RTI_ITERATIONS).Z
+    Zr = Zr + 0.01 * torch.randn(Zr.shape, device=dev, generator=gen)
+    Zr[:, 0, nu:] = x0_r
+    qp_robot_record = check_qp(13, card, plain_r, Zr, P_r)
 
     # -- 14. K3 at the flagship shape -------------------------------------------------
     fused = SQPSolver(OCP(model, ocp_t.modules, solver_cfg(FLAGSHIP_N, rti_fused="on")), device=dev)
     check(fused.rti_fused, "the flagship solver did not take the fused route")
     check_linearization(14, fused, fused._stage_code, plain, Zp, P)
     rti_record = check_rti(14, card, fused, fused._stage_code, Zp, P, x0)
+    fused_r = SQPSolver(OCP(model_r, ocp_r.modules, solver_cfg(N, rti_fused="on")), device=dev)
+    check(fused_r.rti_fused, "the flagship solver at the robot's horizon did not take the fused route")
+    check_linearization(14, fused_r, fused_r._stage_code, plain_r, Zr, P_r)
+    rti_robot_record = check_rti(14, card, fused_r, fused_r._stage_code, Zr, P_r, x0_r, with_b1=False)
 
     # -- 15. the flagship planner, closed loop, on both routes ---------------------------------
     goldens = {n: np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -467,6 +559,9 @@ def flagship_phases(dev, card, codes, build_s):
               f"cycle 1 Z vs the torch backend: max |d| = {diff:.3e}; kernel launches "
               f"{launches[route]}")
         stats = planner.profiler.stats
+        print(f"phase 15: flagship {route}: launches per cycle over {PLANNER_CYCLES} cycles: "
+              + ", ".join(f"K{i} {launches[route][k] / PLANNER_CYCLES:.2f}"
+                          for i, k in ((1, "qp"), (2, "mirror"), (3, "rti"))))
         print(f"phase 15: flagship {route} host scopes, median ms over {PLANNER_CYCLES} cycles: "
               + ", ".join(f"{k} {stats[k].median * 1e3:.2f} (n={stats[k].count})"
                           for k in scopes if k in stats))
@@ -513,7 +608,9 @@ def flagship_phases(dev, card, codes, build_s):
 
     return dict(qp=dict(launches=launches["unfused"]["qp"], **qp_record),
                 mirror=dict(launches=launches["unfused"]["mirror"], **mirror_record),
-                rti=dict(launches=launches["fused"]["rti"], **rti_record))
+                rti=dict(launches=launches["fused"]["rti"], **rti_record),
+                qp_robot=dict(launches=launches["unfused"]["qp"], **qp_robot_record),
+                rti_robot=dict(launches=launches["fused"]["rti"], **rti_robot_record))
 
 
 def main():
@@ -532,7 +629,6 @@ def main():
     from mpc_planner_tpu_torch.parameters import ParameterBlock
     from mpc_planner_tpu_torch.planner import Planner
     from mpc_planner_tpu_torch.solver.ocp import OCP
-    from mpc_planner_tpu_torch.solver.qp import solve_qp
     from mpc_planner_tpu_torch.solver.sqp import EXIT_SUCCESS, SQPSolver
     from mpc_planner_tpu_torch.solver.warmstart import initialize_with_state
     from mpc_planner_tpu_torch.types import ModuleData
@@ -596,9 +692,10 @@ def main():
         if n == 5:  # the main path's x-only MIRROR shape
             ms = cuda_ms(torch, lambda: cuda_qp.mirror_cuda(H, lm), 20)
             plain_ms = cuda_ms(torch, lambda: mirror_unpacked(H, lm), 3)
-            record["mirror"] = dict(max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
-                                    plain_ms=plain_ms)
-            print(f"phase 3: mirror [{H.shape[0]}, 5, 5]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            work = batch_work(cuda_qp.mirror_work(n), H.shape[0])
+            record["mirror"] = kernel_record(float((out_k - out_p).abs().max()), ms, plain_ms, work)
+            print(f"phase 3: mirror [{H.shape[0]}, 5, 5]: kernel {ms:.4f} ms, {bound_text(ms, work)}, "
+                  f"plain {plain_ms:.4f} ms [{card}]")
     sys.stdout.flush()
 
     # -- 4. K1 QP vs plain -----------------------------------------------------
@@ -619,33 +716,7 @@ def main():
     # loop's previous-cycle solution would be.
     Zs = plain_solver.batch_impl(Z0, P, x0, RTI_ITERATIONS).Z
     Zp = Zs + 0.01 * torch.randn(Zs.shape, device=dev, generator=gen)
-    qp = plain_solver._linearize(Zp, P)
-    qp_iters = cfg.solver.qp_iterations
-    ref = solve_qp(qp, nu, nx, iterations=qp_iters, mehrotra=True)
-    out = cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters, mehrotra=True)
-    torch.cuda.synchronize()
-    e_dz, e_ll = rel_err(out.dz, ref.dz), rel_err(out.lam_l, ref.lam_l)
-    print(f"phase 4: QP cold+Mehrotra B={BATCH} nh={ocp.nh}: rel err dz {e_dz:.3e}, lam_l {e_ll:.3e}")
-    check(e_dz < 5e-3 and e_ll < 5e-3, "QP kernel disagrees with plain (cold)")
-    qp_abs = float((out.dz - ref.dz).abs().max())
-    ok = ref.mu < 1e-2
-    qp1 = plain_solver._linearize(Zp + ref.dz, P)
-    warm = (ref.lam_l, ref.lam_u, ok)
-    wi = plain_solver.warm_qp_iters
-    ref2 = solve_qp(qp1, nu, nx, iterations=wi, warm_duals=warm, mehrotra=False)
-    out2 = cuda_qp.solve_qp_cuda(qp1, nu, nx, iterations=wi, warm_duals=warm, mehrotra=False)
-    torch.cuda.synchronize()
-    e_dz2, e_ll2 = rel_err(out2.dz, ref2.dz), rel_err(out2.lam_l, ref2.lam_l)
-    print(f"phase 4: QP warm duals ({int(ok.sum())}/{BATCH} ok)+fixed sigma: "
-          f"rel err dz {e_dz2:.3e}, lam_l {e_ll2:.3e}")
-    check(e_dz2 < 5e-3 and e_ll2 < 5e-3, "QP kernel disagrees with plain (warm)")
-    ms = cuda_ms(torch, lambda: cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=qp_iters), 5)
-    plain_ms = cuda_ms(torch, lambda: solve_qp(qp, nu, nx, iterations=qp_iters), 2)
-    record["qp"] = dict(max_abs_err=max(qp_abs, float((out2.dz - ref2.dz).abs().max())),
-                        ms=ms, plain_ms=plain_ms)
-    print(f"phase 4: QP cold solve B={BATCH}, {qp_iters} IP iterations: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    sys.stdout.flush()
+    record["qp"] = check_qp(4, card, plain_solver, Zp, P, fields=("dz", "lam_l"))
 
     # -- 5. planner closed loop (the main path) ----------------------------------
     def make_planner(backend, rti_fused="auto"):
@@ -752,6 +823,12 @@ def main():
              replaces="mpc_planner_tpu/ops/pallas_qp.py:81", **flagship["mirror"]),
         dict(name="rti_flagship", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/rti_kernel.cuh",
              replaces="mpc_planner_tpu/ops/pallas_rti.py:205", **flagship["rti"]),
+        dict(name="qp_flagship_robot_batch", route="cuda",
+             source="mpc_planner_tpu_torch/ops/csrc/qp_kernel.cu",
+             replaces="mpc_planner_tpu/ops/pallas_qp.py:621", **flagship["qp_robot"]),
+        dict(name="rti_flagship_robot_batch", route="cuda",
+             source="mpc_planner_tpu_torch/ops/csrc/rti_kernel.cuh",
+             replaces="mpc_planner_tpu/ops/pallas_rti.py:205", **flagship["rti_robot"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

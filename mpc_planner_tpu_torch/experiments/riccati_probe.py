@@ -5,16 +5,18 @@ factorization `_factor_chain` :72-94). That probe timed TPU lane layouts of
 the recursion at the heart of the QP kernel K1; this one times Hopper
 thread mappings of the same recursion (ops/csrc/riccati_probe.cu):
 
-  single       one thread per element (K1's mapping);
+  single       one thread per element (K1's first mapping);
   interleaved  two elements per thread, their recursions interleaved;
-  lanes        eight lanes per element, products across lanes by shuffles.
+  lanes        eight lanes per element, products across lanes by shuffles;
+  warp         one warp per element, the recursion redundantly on every
+               lane (what K1 does with its serial part today).
 
 Each is held against the plain batched torch `factor_chain_torch` within
 the TPU probe's own bound (1e-3, riccati_ilp_probe.py:363-370), on its
 synthetic data (:255-262, seeded with numpy): N=20, nu=2, nx=5, 8 sweeps.
 Timings are per launch, with CUDA events, printed as ns per stage-step per
-chain (the TPU probe's unit, :273-274: launch time / (sweeps * N)) at 1024
-and 131,072 elements.
+chain (the TPU probe's unit, :273-274: launch time / (sweeps * N)) at 5,
+1024 and 131,072 elements.
 
     python -m mpc_planner_tpu_torch.experiments.riccati_probe
 """
@@ -28,13 +30,15 @@ import threading
 import numpy as np
 import torch
 
-from mpc_planner_tpu_torch.ops.cuda_qp import BUILD_DIR, CSRC, launch_counts, load_c_library
+from mpc_planner_tpu_torch.ops.cuda_qp import (
+    BUILD_DIR, CSRC, bound_ms, launch_counts, load_c_library, riccati_step_flops,
+)
 
 N_STAGES = 20
 NU, NX = 2, 5
 SWEEPS = 8
-MAPPINGS = ("single", "interleaved", "lanes")
-SIZES = (1024, 131_072)
+MAPPINGS = ("single", "interleaved", "lanes", "warp")
+SIZES = (5, 1024, 131_072)  # the robot's batch, the batch workload's, a full card
 TOLERANCE = 1e-3  # riccati_ilp_probe.py:369
 
 _lib = None
@@ -73,6 +77,14 @@ def factor_chain_torch(H, A, B, sweeps: int = SWEEPS):
             Pn = Hk[:, NU:, NU:] + Ak.mT @ PA + S.mT @ K
             P = 0.5 * (Pn + Pn.mT)
     return P
+
+
+def probe_work(elements: int, n_stages: int = N_STAGES, sweeps: int = SWEEPS):
+    """(flops, bytes) of one launch: sweeps * N factorization steps per
+    element; H, A and B read once, P written once."""
+    nvar = NU + NX
+    floats = (n_stages + 1) * nvar * nvar + n_stages * NX * (NX + NU) + NX * NX
+    return elements * sweeps * n_stages * riccati_step_flops(NU, NX), 4 * elements * floats
 
 
 def load_probe(verbose: bool = False) -> ctypes.CDLL:
@@ -131,6 +143,7 @@ def run(device="cuda", sizes=SIZES, reps: int = 20, seed: int = 0):
     bound) and times. Returns a list of dicts, one per (size, mapping)."""
     rows = []
     for E in sizes:
+        bound, bound_by = bound_ms(*probe_work(E))
         H, A, B = (torch.as_tensor(x, device=device) for x in make_data(np.random.default_rng(seed), E))
         plain_args = [x.movedim(-1, 0).contiguous() for x in (H, A, B)]
         ref = factor_chain_torch(*plain_args).movedim(0, -1)
@@ -143,6 +156,7 @@ def run(device="cuda", sizes=SIZES, reps: int = 20, seed: int = 0):
                 raise RuntimeError(f"riccati probe {mapping} at E={E}: max |P - plain| = {err}")
             ms = _event_ms(lambda: factor_chain_cuda(H, A, B, mapping), reps)
             rows.append(dict(elements=E, mapping=mapping, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=bound_by,
                              ns_per_step=ms * 1e6 / (SWEEPS * N_STAGES),
                              ns_per_step_element=ms * 1e6 / (SWEEPS * N_STAGES * E)))
     return rows

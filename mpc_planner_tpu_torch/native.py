@@ -1,9 +1,10 @@
 """ctypes binding of the native (C++) host geometry: spline fit, closest
 point and the space-time PRM search.
 
-Counterpart of mpc_planner_tpu/native/__init__.py. It builds the SAME
-source, mpc_planner_tpu/native/src/geometry.cpp (plain C++, no JAX), with
-the same g++ flags, into the port's git-ignored `_build/geometry/` at first
+Counterpart of mpc_planner_tpu/native/__init__.py. It builds the port's
+own copy of the source, csrc/geometry.cpp (plain C++; byte-equal to
+mpc_planner_tpu/native/src/geometry.cpp, which a test checks), with the
+same g++ flags, into the port's git-ignored `_build/geometry/` at first
 use, so both packages return bit-equal results on one machine. This is host
 code, not a device kernel: where g++ is missing the callers keep their
 numpy fallbacks (spline_fit.py, guidance/prm.py), as the reference does;
@@ -23,7 +24,7 @@ from typing import Optional
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(os.path.dirname(_HERE), "mpc_planner_tpu", "native", "src", "geometry.cpp")
+SRC = os.path.join(_HERE, "csrc", "geometry.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build", "geometry")
 LIB = os.path.join(BUILD_DIR, "_geometry.so")
 # The reference's flags (mpc_planner_tpu/native/__init__.py:30-33).

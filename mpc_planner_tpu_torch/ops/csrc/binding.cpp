@@ -32,16 +32,14 @@ void mirror(const torch::Tensor& H, torch::Tensor out, double lm, int64_t sweeps
 }
 
 void qp(const std::vector<torch::Tensor>& inputs, const std::vector<torch::Tensor>& outputs,
-        torch::Tensor scratch, int64_t N, int64_t nu, int64_t nx, int64_t nh,
+        int64_t N, int64_t nu, int64_t nx, int64_t nh,
         int64_t iterations, double mu0, double reg, double tau, bool use_warm, bool mehrotra,
         double sigma_fixed) {
   // inputs: H, g, A, Bm, c, Dh, lb, ub, wl, wu, wok; outputs: dz, lam_l, lam_u, mu
   TORCH_CHECK(inputs.size() == 11 && outputs.size() == 4, "qp: 11 inputs and 4 outputs");
   for (const auto& t : inputs) check_cuda_f32(t, "qp input");
   for (const auto& t : outputs) check_cuda_f32(t, "qp output");
-  check_cuda_f32(scratch, "scratch");
   const int64_t B = outputs[3].numel();
-  TORCH_CHECK(scratch.numel() >= qp_scratch_floats(N, nu, nx, nh) * B, "qp: scratch too small");
   const c10::cuda::CUDAGuard guard(inputs[0].device());
   QPLaunch a;
   a.H = inputs[0].data_ptr<float>();
@@ -59,7 +57,6 @@ void qp(const std::vector<torch::Tensor>& inputs, const std::vector<torch::Tenso
   a.lam_l = outputs[1].data_ptr<float>();
   a.lam_u = outputs[2].data_ptr<float>();
   a.mu = outputs[3].data_ptr<float>();
-  a.scratch = scratch.data_ptr<float>();
   a.B = static_cast<int>(B);
   a.N = static_cast<int>(N);
   a.nu = static_cast<int>(nu);
@@ -81,6 +78,9 @@ void qp(const std::vector<torch::Tensor>& inputs, const std::vector<torch::Tenso
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mirror", &mirror, "MIRROR regularization of [M, n, n] symmetric matrices");
-  m.def("qp", &qp, "Interior-point Riccati QP solve, batch-innermost layout");
-  m.def("qp_scratch_floats", &qp_scratch_floats, "scratch floats per batch element");
+  m.def("qp", &qp, "Interior-point Riccati QP solve, element-major layout");
+  m.def("qp_shared_bytes", &qp_shared_bytes,
+        "dynamic shared memory per block (one element), without or with the QP staged");
+  m.def("qp_resident_blocks", &qp_resident_blocks,
+        "one-warp blocks of that much shared memory the device holds at once");
 }

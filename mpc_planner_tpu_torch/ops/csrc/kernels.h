@@ -6,6 +6,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "qp_launch.h"
+
 // K2: MIRROR regularization of M symmetric n x n matrices (n <= 9).
 // H, out: [M, n, n] row-major float32. Returns cudaErrorInvalidValue for
 // an n the kernel is not instantiated for; launch errors are left for the
@@ -13,24 +15,15 @@
 cudaError_t launch_mirror(const float* H, float* out, int64_t M, int n, float lm,
                           int sweeps, cudaStream_t stream);
 
-// K1: fixed-count interior-point Riccati QP solve, one thread per batch
-// element. Every array is batch-innermost ([..., B]):
-//   H [N+1, nvar, nvar, B], g [N+1, nvar, B], A [N, nx, nx, B],
-//   Bm [N, nx, nu, B], c [N, nx, B], Dh [N+1, max(nh,1), nvar, B],
-//   lb/ub [N+1, nrows, B] with inactive rows folded to -/+1e15,
-//   wl/wu [N+1, nrows, B] and wok [B] (read only when use_warm),
-//   outputs dz [N+1, nvar, B], lam_l/lam_u [N+1, nrows, B], mu [B],
-//   scratch: qp_scratch_floats(N, nu, nx, nh) * B floats.
-struct QPLaunch {
-  const float *H, *g, *A, *Bm, *c, *Dh, *lb, *ub, *wl, *wu, *wok;
-  float *dz, *lam_l, *lam_u, *mu, *scratch;
-  int B, N, nu, nx, nh, iterations;
-  float mu0, reg, tau, sigma_fixed;
-  int use_warm, mehrotra;
-};
+// K1: see qp_launch.h for its arguments.
+// Dynamic shared memory of one block (= one warp = one element), in bytes,
+// without or with the QP's data and duals staged.
+int64_t qp_shared_bytes(int N, int nu, int nx, int nh, bool staged);
 
-int64_t qp_scratch_floats(int N, int nu, int nx, int nh);
+// One-warp blocks with that much dynamic shared memory that the current
+// device holds at once.
+int64_t qp_resident_blocks(int64_t shared_bytes_per_block);
 
 // Returns cudaErrorInvalidValue for an (nu, nx) pair the kernel is not
-// instantiated for.
+// instantiated for, or a working set above the 227 KB a block can have.
 cudaError_t launch_qp(const QPLaunch& args, cudaStream_t stream);

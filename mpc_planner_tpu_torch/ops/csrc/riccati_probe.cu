@@ -1,20 +1,26 @@
 // K4: a probe of the backward Riccati factorization on Hopper (N stages,
 // nu = 2, nx = 5, `sweeps` passes over the horizon with P carried), on
-// synthetic stage data, in three thread mappings.
+// synthetic stage data, in four thread mappings.
 //
 // Replaces the layout probes of experiments/riccati_ilp_probe.py (main :278,
 // kernels _factor_chain :72-94, "single", "interleaved", "wide"/"packed").
 // The TPU question was how to fill vector lanes and hide the recursion's
 // latency; Hopper's is how many threads one element's recursion should
-// use. K1 (qp_kernel.cu) runs one thread per element, which leaves 32
-// one-warp blocks for 132 SMs at B=1024. The three answers timed here:
-//   (a) one thread per element: K1's mapping ("single");
+// use. K1 (qp_kernel.cu) gives each element a warp, spreads the row and
+// stage passes over its lanes and keeps this recursion serial. The four
+// answers timed here:
+//   (a) one thread per element: K1's first mapping ("single");
 //   (b) two elements per thread, their recursions interleaved in one loop
 //       body: independent chains in one instruction stream ("interleaved",
 //       the ILP hypothesis);
 //   (c) eight lanes per element, row r of P on lane r, products across
 //       rows by __shfl_sync ("wide"/"packed": more threads, shorter chain
-//       per thread).
+//       per thread);
+//   (d) one warp per element, the recursion run redundantly on all 32
+//       lanes (one stream of operations, broadcast loads, lane 0 stores):
+//       what K1 does with its serial part today ("warp"). It shows what
+//       that part costs inside K1, and against (c) what lanes that share
+//       the products would save.
 // Every step does what K1's factorization does: R-hat = H_uu + B'PB + 1e-7 I,
 // its closed-form 2x2 inverse, K = -R-hat^-1 S-hat, P <- sym(H_xx + A'PA +
 // S-hat'K). Arrays are batch-innermost: H [N+1, 7, 7, E], A [N, 5, 5, E],
@@ -270,20 +276,35 @@ __global__ void __launch_bounds__(kThreads) lanes_kernel(Chain c, float* out, in
   }
 }
 
+// (d) one warp (one block) per element; every lane runs the same recursion.
+__global__ void __launch_bounds__(kThreads) warp_kernel(Chain c, float* out, int sweeps) {
+  const int e = blockIdx.x;
+  float P[NX][NX];
+  load_terminal(c, e, P);
+  for (int s = 0; s < sweeps; ++s)
+    for (int k = c.N - 1; k >= 0; --k) step(c, k, e, P);
+  if (threadIdx.x == 0) store(out, c.E, e, P);
+}
+
 }  // namespace
 
 // mapping 0: one thread per element, 1: two interleaved per thread,
-// 2: eight lanes per element. Returns cudaGetLastError() as an int.
+// 2: eight lanes per element, 3: one warp per element. Returns
+// cudaGetLastError() as an int.
 extern "C" int riccati_probe_launch(int mapping, const float* H, const float* A, const float* B,
                                     float* P, int E, int N, int sweeps, void* stream) {
   if (E == 0) return 0;
   const Chain c{H, A, B, E, N};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long threads = mapping == 0 ? E : mapping == 1 ? (E + 1) / 2 : static_cast<long long>(E) * kGroup;
+  const long long threads = mapping == 0   ? E
+                            : mapping == 1 ? (E + 1) / 2
+                            : mapping == 2 ? static_cast<long long>(E) * kGroup
+                                           : static_cast<long long>(E) * kThreads;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   if (mapping == 0) single_kernel<<<blocks, kThreads, 0, st>>>(c, P, sweeps);
   else if (mapping == 1) interleaved_kernel<<<blocks, kThreads, 0, st>>>(c, P, sweeps);
   else if (mapping == 2) lanes_kernel<<<blocks, kThreads, 0, st>>>(c, P, sweeps);
+  else if (mapping == 3) warp_kernel<<<blocks, kThreads, 0, st>>>(c, P, sweeps);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -140,6 +140,7 @@ class _Function:
     def __init__(self, name: str, fn, nvar: int, npar: int):
         self.name = name
         self.lines = []  # (variable name, C++ statement, variables it reads)
+        self.costs = {}  # variable name -> (operation kind, dual operands)
         self.defined = set()
         self.params = {}  # p index -> _Sym of its loaded float
         # a lambda: make_fx does not trace bound methods
@@ -163,11 +164,13 @@ class _Function:
         self.outputs = [self._scalar(s) for s in outputs]
 
     # -- scalars -------------------------------------------------------------
-    def _var(self, expr: str, dual: bool, *deps: _Sym, pred: bool = False) -> _Sym:
+    def _var(self, expr: str, dual: bool, *deps: _Sym, pred: bool = False, kind: str = "") -> _Sym:
         name = f"v{len(self.lines)}"
         ctype = "bool" if pred else ("T" if dual else "float")
         self.lines.append((name, f"const {ctype} {name} = {expr};",
                            [d.code for d in deps if d.code in self.defined]))
+        # for flops(): the operation and how many of its operands are dual
+        self.costs[name] = (kind, sum(d.dual for d in deps))
         self.defined.add(name)
         return _Sym(name, dual, pred)
 
@@ -184,23 +187,25 @@ class _Function:
 
     def _unary(self, fmt: str, x) -> _Sym:
         s = self._scalar(x)
-        return self._var(fmt.format(s.code), s.dual, s)
+        return self._var(fmt.format(s.code), s.dual, s, kind="unary")
 
     def _binary(self, fmt: str, x, y) -> _Sym:
         a, b = self._scalar(x), self._scalar(y)
         if a.pred or b.pred:
             raise ValueError(f"{self.name}: arithmetic on a predicate ({fmt})")
-        return self._var(fmt.format(a.code, b.code), a.dual or b.dual, a, b)
+        kind = {"{} * {}": "mul", "{} / {}": "div"}.get(fmt, "add")
+        return self._var(fmt.format(a.code, b.code), a.dual or b.dual, a, b, kind=kind)
 
     def _compare(self, fmt: str, x, c) -> _Sym:
         a = self._scalar(x)
-        return self._var(fmt.format(a.code, _literal(c)), False, a, pred=True)
+        return self._var(fmt.format(a.code, _literal(c)), False, a, pred=True, kind="compare")
 
     def _logical(self, fmt: str, *xs) -> _Sym:
         syms = [self._scalar(x) for x in xs]
         if not all(v.pred for v in syms):
             raise ValueError(f"{self.name}: {fmt} on a non-predicate")
-        return self._var(fmt.format(*(v.code for v in syms)), False, *syms, pred=True)
+        return self._var(fmt.format(*(v.code for v in syms)), False, *syms, pred=True,
+                         kind="compare")
 
     def _where(self, c, x, y) -> _Sym:
         cond, a, b = self._scalar(c), self._scalar(x), self._scalar(y)
@@ -309,6 +314,32 @@ class _Function:
             raise ValueError(f"{self.name}: {op} gave shape {out.shape}, traced {tuple(val.shape)}")
         return out
 
+    def _live(self):
+        """The variables an output reads, directly or not."""
+        live = {s.code for s in self.outputs if s.code in self.defined}
+        for name, _, deps in reversed(self.lines):
+            if name in live:
+                live.update(deps)
+        return live
+
+    def flops(self, nvar: int, second_order: bool) -> int:
+        """Operations of one evaluation on Dual<nvar> (or Dual2<nvar>)
+        numbers, from dual.cuh operator by operator: adds, multiplies and
+        divisions count 1 each, a libm call 1, selects and loads 0. A
+        statement on plain floats counts 1."""
+        n, k = nvar, nvar * (nvar + 1) // 2 if second_order else 0
+        parts = 1 + n + k  # value, gradient, packed Hessian
+        dual_cost = {
+            # (kind, dual operands) -> operations
+            ("add", 2): parts, ("add", 1): 1,
+            ("mul", 2): 1 + 3 * n + 7 * k, ("mul", 1): parts,
+            ("div", 2): 1 + 3 * n + 7 * k, ("div", 1): parts + 3 + 3 * k,  # x / c, or c / x
+            ("unary", 1): 4 + n + 4 * k,
+        }
+        live = self._live()
+        return sum(dual_cost.get(self.costs[name], 1 if self.costs[name][0] else 0)
+                   for name, _, _ in self.lines if name in live)
+
     def emit(self) -> str:
         """The C++ member function: out(i, value) for output entry i, each
         right after the statement that computes it; statements no output
@@ -319,10 +350,7 @@ class _Function:
                 stores.setdefault(s.code, []).append(i)
             else:
                 late.append(f"out({i}, {s.code});")
-        live = set(stores)
-        for name, _, deps in reversed(self.lines):
-            if name in live:
-                live.update(deps)
+        live = self._live()
         body = []
         for name, line, _ in self.lines:
             if name in live:
@@ -360,6 +388,7 @@ class StageCode:
     def __init__(self, ocp):
         self.ocp = ocp
         self._struct = None
+        self._flops = None
 
     def generate(self) -> str:
         """The `mpc::Stages` struct: dimensions and one templated function
@@ -375,7 +404,11 @@ class StageCode:
                    ("terminal_cost", ocp.terminal_cost)]
             if ocp.nh:
                 fns.append(("constraints", ocp.constraint_fn))
-            bodies = [_Function(name, fn, ocp.nvar, ocp.npar).emit() for name, fn in fns]
+            functions = [_Function(name, fn, ocp.nvar, ocp.npar) for name, fn in fns]
+            bodies = [f.emit() for f in functions]
+            # the costs on Dual2 (gradient and Hessian), the rest on Dual
+            self._flops = {f.name: f.flops(ocp.nvar, f.name.endswith("_cost")) for f in functions}
+            self._flops.setdefault("constraints", 0)
             if not ocp.nh:  # nh = 0: a constraint function with no rows
                 bodies.append("  template <class T, class PA, class Out>\n"
                               "  static MPC_STAGE void constraints(const T*, const PA&, const Out&) {}")
@@ -397,6 +430,12 @@ class StageCode:
                 "",
             ])
         return self._struct
+
+    def flops(self) -> dict:
+        """Operations of one evaluation of each stage function with its
+        derivatives (K3's linearization calls each once per stage)."""
+        self.generate()
+        return dict(self._flops)
 
     def source(self, target: str) -> str:
         """Full translation unit: "cuda" (the K3 kernel) or "cpu" (the

@@ -9,9 +9,15 @@ Shapes: system_jackal("goal") (N=30, nh=12) and the T-MPC++ flagship
 OCP (configuration_tmpc at N=20, nh=24, nrows=31: the batch workload).
 
 Tolerances: MIRROR 1e-5 of max |H| (same rotations, FMA rounding only);
-QP 5e-3 of max |ref| on dz and lambda (closed-form R-hat inverse and a
-carried D zeta in the kernel vs Cholesky and a recomputed D zeta in the
-plain version: the reference's own kernel-vs-XLA bound).
+QP 5e-3 of max |ref| on dz and lambda (closed-form R-hat inverse, a
+carried D zeta and row sums taken as 32 partial sums in the kernel vs
+Cholesky, a recomputed D zeta and torch's sums in the plain version: the
+reference's own kernel-vs-XLA bound).
+
+K1 runs one warp per batch element (one block each), so the cases also
+cover batches of 1, 5 and 33 elements, an element whose data holds a NaN
+beside healthy ones, warm duals accepted for some elements only, and both
+horizons (N+1 = 31 and 21).
 """
 
 import numpy as np
@@ -204,3 +210,91 @@ def test_sqp_cuda_backend_matches_torch(device):
     a, b = results["cuda"], results["torch"]
     assert torch.equal(a.exit_code, b.exit_code)
     assert float((a.Z - b.Z).abs().max()) < 5e-3
+
+
+def _slice(qp, idx):
+    return qp._replace(**{f: getattr(qp, f)[idx].contiguous() for f in qp._fields})
+
+
+@pytest.mark.parametrize("batch", [1, 5, 33])
+@pytest.mark.parametrize("shape", ["goal_N30", "flagship_N20"])
+def test_qp_kernel_small_and_ragged_batches(jackal, flagship, shape, batch):
+    """One block per element: any batch size launches, N+1 = 31 (nh=12) and
+    N+1 = 21 (nh=24), and each element's answer does not depend on the
+    batch it came in."""
+    case = jackal if shape == "goal_N30" else flagship
+    m = case["model"]
+    qp = _slice(case["qp"], slice(0, batch))
+    ref = solve_qp(qp, m.nu, m.nx, iterations=9)
+    out = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, iterations=9)
+    full = cuda_qp.solve_qp_cuda(case["qp"], m.nu, m.nx, iterations=9)
+    torch.cuda.synchronize()
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        assert getattr(out, f).shape == getattr(ref, f).shape
+        assert getattr(out, f).is_contiguous()
+        assert _rel(getattr(out, f), getattr(ref, f)) < 5e-3, f
+        assert torch.equal(getattr(out, f), getattr(full, f)[:batch]), f
+
+
+def test_qp_kernel_nan_element_freezes_alone(flagship):
+    """A NaN in one element's g: its step is never finite, so the warp
+    freezes that element (dz stays 0, the duals stay at their start) and
+    the elements around it are solved as if it were not there."""
+    m = flagship["model"]
+    qp = _slice(flagship["qp"], slice(0, 5))
+    g = qp.g.clone()
+    g[2, 7, 3] = float("nan")
+    bad = qp._replace(g=g)
+    ref = solve_qp(bad, m.nu, m.nx, iterations=9)
+    out = cuda_qp.solve_qp_cuda(bad, m.nu, m.nx, iterations=9)
+    clean = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, iterations=9)
+    torch.cuda.synchronize()
+    assert float(out.dz[2].abs().max()) == 0.0 and float(ref.dz[2].abs().max()) == 0.0
+    assert _rel(out.lam_l[2], ref.lam_l[2]) < 1e-5 and _rel(out.lam_u[2], ref.lam_u[2]) < 1e-5
+    assert _rel(out.mu[2:3], ref.mu[2:3]) < 1e-4
+    healthy = [0, 1, 3, 4]
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        assert torch.isfinite(getattr(out, f)[healthy]).all(), f
+        assert torch.equal(getattr(out, f)[healthy], getattr(clean, f)[healthy]), f
+
+
+@pytest.mark.parametrize("mehrotra", [True, False])
+def test_qp_kernel_warm_duals_with_mixed_ok(flagship, mehrotra):
+    """Warm duals accepted for every second element only: the others start
+    cold inside the same launch."""
+    m = flagship["model"]
+    wl, wu, _ = flagship["warm"]
+    ok = torch.arange(B, device=wl.device) % 2 == 0
+    kw = dict(iterations=4, mehrotra=mehrotra, warm_duals=(wl, wu, ok))
+    ref = solve_qp(flagship["qp_next"], m.nu, m.nx, **kw)
+    out = cuda_qp.solve_qp_cuda(flagship["qp_next"], m.nu, m.nx, **kw)
+    torch.cuda.synchronize()
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        assert _rel(getattr(out, f), getattr(ref, f)) < 5e-3, f
+
+
+@pytest.mark.parametrize("shape", ["goal_N30", "flagship_N20"])
+def test_qp_kernel_large_batch_reads_the_qp_from_global_memory(device, jackal, flagship, shape):
+    """The launcher stages an element's QP into shared memory only while the
+    whole batch is resident on the card at once; the fixture's B=64 is, a
+    few copies of it are not, so that launch takes the other path (the QP
+    read through L1/L2, more warps an SM). Same arithmetic: the answers are
+    those of the B=64 launch."""
+    case = jackal if shape == "goal_N30" else flagship
+    m, qp = case["model"], case["qp"]
+    ext = cuda_qp.load_kernels()
+    Np1, nrows, nvar = qp.D.shape[1:]
+    staged = ext.qp_shared_bytes(Np1 - 1, m.nu, m.nx, nrows - nvar, True)
+    resident = ext.qp_resident_blocks(staged)
+    assert B <= resident
+    copies = resident // B + 1
+
+    def tiled(x):
+        return x.repeat(copies, *([1] * (x.dim() - 1)))
+
+    big = qp._replace(**{f: tiled(getattr(qp, f)) for f in qp._fields})
+    small = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, iterations=9)
+    out = cuda_qp.solve_qp_cuda(big, m.nu, m.nx, iterations=9)
+    torch.cuda.synchronize()
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        assert _rel(getattr(out, f), tiled(getattr(small, f))) < 1e-5, f

@@ -16,6 +16,11 @@ tests/test_pallas_rti.py:96-98) and at most one element of the batch with
 another exit code; its linearization 1e-4 of max |ref| (the same
 arithmetic up to libm's sin/cos and summation order); K4 1e-3 absolute on
 P (the TPU probe's own bound, experiments/riccati_ilp_probe.py:369).
+
+K3 runs one warp per batch element (one block each) and linearizes stage
+k on lane k, so the cases also cover batches of 1, 5 and 33 elements, both
+horizons (N+1 = 31 and 21), warm duals accepted for some elements only,
+and an element whose parameters hold a NaN beside healthy ones.
 """
 
 import numpy as np
@@ -27,7 +32,7 @@ from mpc_planner_tpu_torch.experiments import riccati_probe
 from mpc_planner_tpu_torch.models import SecondOrderUnicycleModel
 from mpc_planner_tpu_torch.modules import GoalModule, ModuleManager, MPCBaseModule
 from mpc_planner_tpu_torch.ops import cuda_qp
-from mpc_planner_tpu_torch.ops.cuda_rti import linearize_cuda, solve_rti_cuda
+from mpc_planner_tpu_torch.ops.cuda_rti import linearize_cuda, load_rti, solve_rti_cuda
 from mpc_planner_tpu_torch.ops.rti import solve_rti_torch
 from mpc_planner_tpu_torch.ops.stage_codegen import StageCode
 from mpc_planner_tpu_torch.parameters import ParameterBlock
@@ -223,3 +228,78 @@ def test_riccati_probe_matches_plain(device, mapping):
     torch.cuda.synchronize()
     assert cuda_qp.launch_counts["riccati_probe"] == 1
     assert float((P - ref.movedim(0, -1)).abs().max()) < riccati_probe.TOLERANCE
+
+
+@pytest.mark.parametrize("batch", [1, 5, 33])
+@pytest.mark.parametrize("shape", ["goal_N30", "flagship_N20"])
+def test_rti_kernel_small_and_ragged_batches(jackal, flagship, shape, batch):
+    """One block per element: any batch size launches, at N+1 = 31 and 21
+    stages on the lanes, and each element's answer does not depend on the
+    batch it came in."""
+    case = jackal if shape == "goal_N30" else flagship
+    s = case["solver"]
+    Z0, P = case["Z0"][:batch].contiguous(), case["P"][:batch]
+    args = dict(case["kw"], it0=s.qp_iterations)
+    ref = solve_rti_torch(Z0, P, case["ocp"], **args)
+    out = solve_rti_cuda(Z0, P, s._stage_code, **args)
+    full = solve_rti_cuda(case["Z0"], case["P"], s._stage_code, **args)
+    torch.cuda.synchronize()
+    assert out.Z.shape == ref.Z.shape and out.Z.is_contiguous()
+    assert _rel(out.Z, ref.Z) < 5e-3
+    for f in ("Z", "lam_l", "lam_u", "mu"):
+        assert torch.equal(getattr(out, f), getattr(full, f)[:batch]), f
+
+
+def test_rti_kernel_warm_duals_with_mixed_ok(flagship):
+    """The next cycle with the previous duals accepted for every second
+    element only: the others start their first QP cold in the same launch."""
+    s, kw = flagship["solver"], flagship["kw"]
+    P = flagship["P"]
+    first = solve_rti_torch(flagship["Z0"], P, flagship["ocp"], **dict(kw, it0=s.qp_iterations))
+    ok = torch.arange(B, device=P.device) % 2 == 0
+    args = dict(kw, it0=s.warm_qp_iters, warm_duals=(first.lam_l, first.lam_u, ok))
+    ref = solve_rti_torch(first.Z, P, flagship["ocp"], **args)
+    out = solve_rti_cuda(first.Z, P, s._stage_code, **args)
+    torch.cuda.synchronize()
+    assert _rel(out.Z, ref.Z) < 5e-3
+    assert _rel(out.lam_l, ref.lam_l) < 5e-3
+
+
+def test_rti_kernel_nan_element_stays_alone(flagship):
+    """A NaN in one element's parameters: its QPs never take a finite step,
+    so the warp leaves its Z where it started; its neighbours' answers are
+    those of a launch without it."""
+    s, kw = flagship["solver"], flagship["kw"]
+    Z0 = flagship["Z0"][:5].contiguous()
+    P = flagship["P"][:5].clone()
+    args = dict(kw, it0=s.qp_iterations)
+    clean = solve_rti_cuda(Z0, P, s._stage_code, **args)
+    P[2] = float("nan")
+    out = solve_rti_cuda(Z0, P, s._stage_code, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(out.Z[2], Z0[2])
+    healthy = [0, 1, 3, 4]
+    assert torch.isfinite(out.Z[healthy]).all()
+    for f in ("Z", "lam_l", "lam_u", "mu"):
+        assert torch.equal(getattr(out, f)[healthy], getattr(clean, f)[healthy]), f
+
+
+def test_rti_kernel_large_batch_keeps_the_qp_in_global_scratch(flagship):
+    """The launcher keeps an element's linearized QP in shared memory only
+    while the whole batch is resident on the card at once; the fixture's
+    B=64 is, a few copies of it are not, so that launch writes its QPs to
+    global scratch. Same arithmetic: the answers are those of the B=64
+    launch."""
+    s = flagship["solver"]
+    args = dict(flagship["kw"], it0=s.qp_iterations)
+    staged = load_rti(s._stage_code).mpc_rti_shared_bytes(flagship["Z0"].shape[1] - 1, 1)
+    resident = cuda_qp.load_kernels().qp_resident_blocks(staged)
+    assert B <= resident
+    n = resident // B + 1
+    small = solve_rti_cuda(flagship["Z0"], flagship["P"], s._stage_code, **args)
+    out = solve_rti_cuda(flagship["Z0"].repeat(n, 1, 1), flagship["P"].repeat(n, 1, 1),
+                         s._stage_code, **args)
+    torch.cuda.synchronize()
+    assert _rel(out.Z, small.Z.repeat(n, 1, 1)) < 1e-5
+    assert _rel(out.lam_l, small.lam_l.repeat(n, 1, 1)) < 1e-5
+    assert _rel(out.mu, small.mu.repeat(n)) < 1e-4

@@ -86,6 +86,76 @@ def place_near_pedestrian(state, data, gap: float, speed: float):
     data.ego_position = state.get_position()
 
 
+def jax_qp_case(name: str, B: int = 4, iterations: int = 8):
+    """QPs built by the JAX solver for the QP tests of both the plain
+    version and the kernel body: `name` "goal" (goal tracking on the 4-state
+    unicycle, nh=0) or "jackal" (system_jackal("goal") with the robot 2 m
+    behind a pedestrian at 1 m/s, nh=12: obstacle rows active and the duals
+    unique; some placements make an obstacle row and a box row active
+    together, where no two solvers agree on the duals). B perturbed warm
+    starts; the SQP loop's next QPs (relinearized at Z + dz) with the first
+    QPs' duals, element 2's rejected (ok=False: it starts cold)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mpc_planner_tpu.models import SecondOrderUnicycleModel
+    from mpc_planner_tpu.modules import GoalModule, ModuleManager, MPCBaseModule
+    from mpc_planner_tpu.solver.qp import solve_qp as jax_solve_qp
+    from mpc_planner_tpu.solver.sqp import SQPSolver
+    from mpc_planner_tpu.types import RealTimeData, State
+
+    if name == "goal":
+        cfg = jax_default_config(N=N_SMALL)
+        cfg = cfg.replace(solver=cfg.solver.__class__(**SOLVER_SMALL))
+        model = SecondOrderUnicycleModel()
+        mgr = ModuleManager()
+        base = mgr.add_module(MPCBaseModule(cfg))
+        base.weigh_variable("a", "acceleration")
+        base.weigh_variable("w", "angular_velocity")
+        mgr.add_module(GoalModule(cfg))
+        data = RealTimeData()
+        data.goal = np.array([4.0, 1.0])
+        data.goal_received = True
+        state = State(model)
+    else:
+        js, _ = jackal_goal_pair(n_pedestrians=6, seed=3)
+        place_near_pedestrian(js.state, js.data, gap=2.0, speed=1.0)
+        model, cfg, mgr, data, state = js.model, js.cfg, js.modules, js.data, js.state
+    ocp = JaxOCP(model, mgr, cfg)
+    solver = SQPSolver(ocp)
+    pblock = JaxParameterBlock(ocp.params, cfg.N + 1)
+    mgr.set_parameters_all(data, JaxModuleData(), pblock)
+    pblock.data[cfg.N] = pblock.data[cfg.N - 1]
+    Zb = perturbed_warmstarts(jax_initialize_with_state(model, cfg.N, state), model.nu, B)
+    Pb = np.tile(pblock.data[None], (B, 1, 1)).astype(np.float32)
+    linearize = jax.vmap(solver._linearize)
+    qp = linearize(jnp.asarray(Zb), jnp.asarray(Pb))
+    with jax.default_matmul_precision("highest"):
+        first = jax.vmap(lambda d: jax_solve_qp(d, model.nu, model.nx, iterations=iterations))(qp)
+    qp_next = linearize(jnp.asarray(Zb) + first.dz, jnp.asarray(Pb))
+    ok = np.array([True, True, False, True])
+    return dict(name=name, model=model, nh=ocp.nh, qp=qp, qp_next=qp_next,
+                warm=(np.asarray(first.lam_l), np.asarray(first.lam_u), ok))
+
+
+def jax_qp_reference(case, warm: bool, mehrotra: bool, iterations: int):
+    """The JAX package's solve_qp (vmapped, full-precision matmuls) on a
+    jax_qp_case: the first QPs cold, or the next QPs with the warm duals."""
+    import jax
+    import jax.numpy as jnp
+
+    from mpc_planner_tpu.solver.qp import solve_qp as jax_solve_qp
+
+    nu, nx = case["model"].nu, case["model"].nx
+    with jax.default_matmul_precision("highest"):
+        if not warm:
+            return jax.vmap(lambda d: jax_solve_qp(d, nu, nx, iterations=iterations,
+                                                   mehrotra=mehrotra))(case["qp"])
+        return jax.vmap(lambda d, wl, wu, ok: jax_solve_qp(
+            d, nu, nx, iterations=iterations, warm_duals=(wl, wu, ok), mehrotra=mehrotra))(
+            case["qp_next"], *(jnp.asarray(w) for w in case["warm"]))
+
+
 def perturbed_warmstarts(Z0: np.ndarray, nu: int, B: int, seed: int = 0, scale: float = 0.05):
     """[B, N+1, nvar] copies of Z0 with seeded noise on the states of
     stages 1..N (the bench.py recipe)."""
