@@ -3,11 +3,14 @@ hand-written kernel, as ptxas reports them (`-Xptxas=-v`, sm_90a), plus the
 dynamic shared memory K1 and K3 ask for per block (one warp = one element)
 and the blocks per SM that leaves.
 
-    python -m mpc_planner_tpu_torch.experiments.ptxas_report
+    python -m mpc_planner_tpu_torch.experiments.ptxas_report [K1 | K3 | K4 ...]
 
-Builds K1 + K2, K3 for system_jackal("goal") and for the flagship OCP
-(configuration_tmpc) and K4 from the sources, with the build's output
-captured, and prints the lines that name a kernel or a noinline function.
+Builds K1 + K2, K3 for system_jackal("goal"), for the flagship OCP
+(configuration_tmpc), for the real Jackal's Gaussian T-MPC, the bicycle,
+dingo's point mass and rosnavigation's slack T-MPC, and K4 from the
+sources, with the build's output captured, and prints the lines that name
+a kernel or a noinline function. With arguments, only the libraries whose
+label starts with one of them ("K1" alone takes about a minute).
 Needs nvcc (the machine with the card); each library must not be built yet
 in this process, or ninja has nothing to report.
 """
@@ -78,11 +81,21 @@ def main():
     goal = StageCode(OCP(model, modules, cfg))
     c20 = default_config(N=20)
     flagship = StageCode(OCP(*presets.configuration_tmpc(c20), c20))
+    c30 = default_config(N=30)
+    others = {"jackal tmpc (Gaussian)": presets.system_jackal("tmpc"),
+              "bicycle": (c30, *presets.configuration_bicycle(c30)),
+              "dingo lmpcc (point mass)": presets.system_dingo("lmpcc"),
+              "rosnavigation tmpc (slack, decomp)": presets.system_rosnavigation("tmpc")}
     builds = [("K1 + K2", cuda_qp.load_kernels, (True,)),
               ("K3 goal", cuda_rti.load_rti, (goal, True)),
               ("K3 flagship", cuda_rti.load_rti, (flagship, True)),
+              *((f"K3 {name}", cuda_rti.load_rti, (StageCode(OCP(m, mods, c)), True))
+                for name, (c, m, mods) in others.items()),
               ("K4", riccati_probe.load_probe, (True,))]
+    only = sys.argv[1:]
     for label, fn, args in builds:
+        if only and not label.startswith(tuple(only)):
+            continue
         print(f"== {label}")
         for name, regs, stack, stores, loads, smem in summarize(_captured(fn, *args)):
             if len(name) > 110:
@@ -94,11 +107,15 @@ def main():
     print("== dynamic shared memory per block (one warp, one element), and the blocks the card "
           "holds at once by it (registers: 65,536 an SM)")
     for label, N, nu, nx, nh in (("flagship N=20", 20, 2, 5, 24), ("flagship N=30", 30, 2, 5, 24),
-                                 ("goal N=30", 30, 2, 5, 12)):
+                                 ("goal N=30", 30, 2, 5, 12), ("bicycle N=30", 30, 3, 6, 12),
+                                 ("dingo lmpcc N=30", 30, 2, 4, 24),
+                                 ("rosnavigation tmpc N=20", 20, 3, 5, 36)):
         for staged in (False, True):
-            nbytes = ext.qp_shared_bytes(N, nu, nx, nh, staged)
-            print(f"{label}, QP data {'staged in shared memory' if staged else 'in global memory'}: "
-                  f"{nbytes} B a block, {ext.qp_resident_blocks(nbytes)} blocks resident")
+            for mirror in (False, True):
+                nbytes = ext.qp_shared_bytes(N, nu, nx, nh, staged, mirror)
+                print(f"{label}, QP data {'staged in shared memory' if staged else 'in global memory'}"
+                      f"{', MIRROR inside' if mirror else ''}: {nbytes} B a block, "
+                      f"{ext.qp_resident_blocks(nbytes)} blocks resident")
 
 
 if __name__ == "__main__":

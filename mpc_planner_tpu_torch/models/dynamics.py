@@ -16,9 +16,11 @@ Conventions (identical to the reference):
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from mpc_planner_tpu_torch.utils.math import atan2
 
 
 def rk4_step(f, x, u, dt: float, num_steps: int = 3):
@@ -37,12 +39,16 @@ class DynamicsModel:
     """Base dynamics model (ref solver_model.py:49-167).
 
     Subclasses define `states`, `inputs`, bounds, and `continuous_model`.
+    Optionally `discrete_update(z, x_next, p, ocp)` post-processes
+    integrated states (used by curvature-aware models for the spline
+    state, ref solver_model.py:242-271).
     """
 
     states: Sequence[str] = ()
     inputs: Sequence[str] = ()
     lower_bound: Sequence[float] = ()
     upper_bound: Sequence[float] = ()
+    nx_integrate: Optional[int] = None  # integrate only the first n states
     width: float = 0.65  # collision width [m], used by contouring constraints
 
     @property
@@ -88,11 +94,17 @@ class DynamicsModel:
         raise NotImplementedError
 
     def discrete_dynamics(self, z, p, dt: float, num_steps: int = 3, ocp=None):
-        """x_{k+1} = F(z_k). The reference's signature: `p`/`ocp` feed the
-        parameter-dependent updates of models not ported yet (slack)."""
+        """x_{k+1} = F(z_k). `p`/`ocp` feed parameter-dependent discrete
+        updates (curvature-aware spline state)."""
         u = z[..., : self.nu]
         x = z[..., self.nu :]
-        return rk4_step(self.continuous_model, x, u, dt, num_steps)
+        n_int = self.nx if self.nx_integrate is None else self.nx_integrate
+        x_int = rk4_step(self.continuous_model, x[..., :n_int], u, dt, num_steps)
+        return self.discrete_update(z, x_int, p, ocp)
+
+    def discrete_update(self, z, x_int, p, ocp):
+        """Append/post-process non-integrated states (default: identity)."""
+        return x_int
 
 
 class SecondOrderUnicycleModel(DynamicsModel):
@@ -109,6 +121,22 @@ class SecondOrderUnicycleModel(DynamicsModel):
         return torch.stack([v * torch.cos(psi), v * torch.sin(psi), w, a], dim=-1)
 
 
+class PointMassModel(DynamicsModel):
+    """Holonomic double-integrator (omnidirectional base, e.g. Dingo).
+
+    Ref mpc_planner_dingo/scripts/generate_dingo_solver.py:31-45
+    (ContouringPointMassModel): states (x, y, vx, vy), inputs (ax, ay).
+    """
+
+    states = ("x", "y", "vx", "vy")
+    inputs = ("ax", "ay")
+    lower_bound = (-1.0, -1.0, -200.0, -200.0, -1.0, -1.0)
+    upper_bound = (1.0, 1.0, 200.0, 200.0, 1.0, 1.0)
+
+    def continuous_model(self, x, u):
+        return torch.stack([x[..., 2], x[..., 3], u[..., 0], u[..., 1]], dim=-1)
+
+
 class ContouringSecondOrderUnicycleModel(DynamicsModel):
     """Unicycle + spline-progress state (ref solver_model.py:193-214)."""
 
@@ -121,3 +149,139 @@ class ContouringSecondOrderUnicycleModel(DynamicsModel):
         a, w = u[..., 0], u[..., 1]
         psi, v = x[..., 2], x[..., 3]
         return torch.stack([v * torch.cos(psi), v * torch.sin(psi), w, a, v], dim=-1)
+
+
+class ContouringSecondOrderUnicycleModelWithSlack(ContouringSecondOrderUnicycleModel):
+    """Adds a slack variable, as an INPUT (per-stage slack freedom, the form
+    of the reference's other slack models, solver_model.py:310, :363). A
+    slack STATE would be pinned at stage 0 by the Riccati rollout (dx0 = 0)
+    and frozen over the horizon (the reference's fix 3257449)."""
+
+    states = ("x", "y", "psi", "v", "spline")
+    inputs = ("a", "w", "slack")
+    lower_bound = (-2.0, -0.8, 0.0, -2000.0, -2000.0, -math.pi * 4, -0.01, -1.0)
+    upper_bound = (2.0, 0.8, 5000.0, 2000.0, 2000.0, math.pi * 4, 3.0, 10000.0)
+
+
+def _curvature_aware_spline_update(model, z, x_int, p, ocp):
+    """Discrete spline-progress update for CA-MPC models
+    (ref solver_model.py:242-271 / :398-437).
+
+    Projects the integrated position advance onto the path to obtain the
+    exact progress increment s+ = s + R * atan2(v_t, R - e_c - v_n).
+
+    Outside an OCP context (ocp=None: a simulator integrating the true
+    robot state, which has no spline parameters) the projection is
+    unavailable; progress then advances by the traveled distance (the
+    contouring module re-projects `spline` from the real path every cycle).
+    """
+    from mpc_planner_tpu_torch.splines import Spline2D
+
+    x = z[..., model.nu :]
+    pos_x, pos_y, s = x[..., 0], x[..., 1], x[..., -1]
+
+    if ocp is None:
+        ds = torch.hypot(x_int[..., 0] - pos_x, x_int[..., 1] - pos_y)
+        return torch.cat([x_int, (s + ds)[..., None]], dim=-1)
+
+    path = Spline2D(ocp.params.bind(p), ocp.num_segments, s)
+    path_x, path_y = path.at(s)
+    dxn, dyn = path.deriv_normalized(s)
+
+    contour_error = dyn * (pos_x - path_x) - dxn * (pos_y - path_y)
+
+    dpx = x_int[..., 0] - pos_x
+    dpy = x_int[..., 1] - pos_y
+    vt = dpx * dxn + dpy * dyn
+    vn = dpx * dyn - dpy * dxn
+
+    R = 1.0 / torch.clamp(path.get_curvature(s), min=1e-10)
+    R = torch.clamp(R, min=1e5)  # ref solver_model.py:266 (cd.fmax(R, 1e5))
+
+    theta = atan2(vt, R - contour_error - vn)
+    s_next = s + R * theta
+    return torch.cat([x_int, s_next[..., None]], dim=-1)
+
+
+class ContouringSecondOrderUnicycleModelCurvatureAware(DynamicsModel):
+    """CA-MPC unicycle: spline state via discrete projection update
+    (ref solver_model.py:217-271)."""
+
+    states = ("x", "y", "psi", "v", "spline")
+    inputs = ("a", "w")
+    lower_bound = (-4.0, -0.8, -2000.0, -2000.0, -math.pi * 4, -0.01, -1.0)
+    upper_bound = (4.0, 0.8, 2000.0, 2000.0, math.pi * 4, 3.0, 10000.0)
+    nx_integrate = 4
+
+    def continuous_model(self, x, u):
+        a, w = u[..., 0], u[..., 1]
+        psi, v = x[..., 2], x[..., 3]
+        return torch.stack([v * torch.cos(psi), v * torch.sin(psi), w, a], dim=-1)
+
+    def discrete_update(self, z, x_int, p, ocp):
+        return _curvature_aware_spline_update(self, z, x_int, p, ocp)
+
+
+class BicycleModel2ndOrder(DynamicsModel):
+    """Bicycle with dynamic steering + slack input (ref solver_model.py:302-352)."""
+
+    states = ("x", "y", "psi", "v", "delta", "spline")
+    inputs = ("a", "w", "slack")
+    lower_bound = (-3.0, -1.5, 0.0, -1.0e6, -1.0e6, -math.pi * 4, -0.01, -0.55, -1.0)
+    upper_bound = (3.0, 1.5, 1.0e2, 1.0e6, 1.0e6, math.pi * 4, 5.0, 0.55, 5000.0)
+
+    wheel_base = 2.79
+    width = 2.25
+
+    def continuous_model(self, x, u):
+        a, w = u[..., 0], u[..., 1]
+        psi, v, delta = x[..., 2], x[..., 3], x[..., 4]
+        lr = self.wheel_base / 2.0
+        lf = self.wheel_base / 2.0
+        ratio = lr / (lr + lf)
+        beta = torch.atan(ratio * torch.tan(delta))
+        return torch.stack(
+            [
+                v * torch.cos(psi + beta),
+                v * torch.sin(psi + beta),
+                (v / lr) * torch.sin(beta),
+                a,
+                w,
+                v,
+            ],
+            dim=-1,
+        )
+
+
+class BicycleModel2ndOrderCurvatureAware(DynamicsModel):
+    """CA bicycle (ref solver_model.py:355-437)."""
+
+    states = ("x", "y", "psi", "v", "delta", "spline")
+    inputs = ("a", "w", "slack")
+    lower_bound = (-3.0, -1.5, 0.0, -1.0e6, -1.0e6, -math.pi * 4, -0.01, -0.55, -1.0)
+    upper_bound = (3.0, 1.5, 1.0e2, 1.0e6, 1.0e6, math.pi * 4, 8.0, 0.55, 5000.0)
+    nx_integrate = 5
+
+    wheel_base = 2.79
+    width = 2.25
+    lr = 2.79 / 2.0
+    lf = 2.79 / 2.0
+
+    def continuous_model(self, x, u):
+        a, w = u[..., 0], u[..., 1]
+        psi, v, delta = x[..., 2], x[..., 3], x[..., 4]
+        ratio = self.lr / (self.lr + self.lf)
+        beta = torch.atan(ratio * torch.tan(delta))
+        return torch.stack(
+            [
+                v * torch.cos(psi + beta),
+                v * torch.sin(psi + beta),
+                (v / self.lr) * torch.sin(beta),
+                a,
+                w,
+            ],
+            dim=-1,
+        )
+
+    def discrete_update(self, z, x_int, p, ocp):
+        return _curvature_aware_spline_update(self, z, x_int, p, ocp)

@@ -361,6 +361,16 @@ class GuidanceConstraintModule(ConstraintModule):
             Z[:, -1, model.index("w")] = 0.0
         except KeyError:
             pass
+        # Holonomic (point-mass) models: velocity/acceleration components
+        if "vx" in model.states:
+            vel = np.concatenate([d / dt, d[:, -1:] / dt], axis=1)  # [B, N+1, 2]
+            Z[:, :, model.index("vx")] = vel[..., 0]
+            Z[:, :, model.index("vy")] = vel[..., 1]
+            acc = np.diff(vel, axis=1) / dt
+            Z[:, :-1, model.index("ax")] = acc[..., 0]
+            Z[:, :-1, model.index("ay")] = acc[..., 1]
+            Z[:, -1, model.index("ax")] = 0.0
+            Z[:, -1, model.index("ay")] = 0.0
         return clip_to_bounds(model, Z)
 
     def save_data(self, record: dict) -> None:

@@ -1,5 +1,6 @@
 """ctypes binding of the native (C++) host geometry: spline fit, closest
-point and the space-time PRM search.
+point, the space-time PRM search, the Douglas-Rachford projection and the
+free-space polytope.
 
 Counterpart of mpc_planner_tpu/native/__init__.py. It builds the port's
 own copy of the source, csrc/geometry.cpp (plain C++; byte-equal to
@@ -81,6 +82,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.closest_point.argtypes = [c_d, c_d, c_d, ctypes.c_int64, ctypes.c_double,
                                       ctypes.c_double, ctypes.c_double, ctypes.c_double,
                                       ctypes.c_int64]
+        lib.dr_project.restype = None
+        lib.dr_project.argtypes = [c_d, ctypes.c_int64, c_d, c_d, ctypes.c_int64, ctypes.c_int]
+        lib.free_polytope.restype = None
+        lib.free_polytope.argtypes = [ctypes.c_double, ctypes.c_double, c_d, ctypes.c_int64,
+                                      ctypes.c_int64, ctypes.c_double, c_d]
         lib.prm_search.restype = ctypes.c_int
         lib.prm_search.argtypes = [c_d, c_i, ctypes.c_int64, ctypes.c_int64, c_d, c_d, c_d,
                                    ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
@@ -127,6 +133,32 @@ def closest_point(coeffs_x, coeffs_y, knots, px, py, lo, hi, samples=200) -> Opt
     kn = np.ascontiguousarray(knots, dtype=np.float64)
     return float(lib.closest_point(_ptr(cx), _ptr(cy), _ptr(kn), len(kn) - 1, px, py, lo, hi,
                                    samples))
+
+
+def dr_project(points, obstacles, radii, iters: int = 3) -> Optional[np.ndarray]:
+    """Douglas-Rachford-style projection of points [K, 2] (copied) out of the
+    discs around obstacles [K, M, 2] with radii [M]; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(points, dtype=np.float64).copy()
+    obs = np.ascontiguousarray(obstacles, dtype=np.float64)
+    rad = np.ascontiguousarray(radii, dtype=np.float64)
+    lib.dr_project(_ptr(pts), pts.shape[0], _ptr(obs), _ptr(rad), rad.shape[0], iters)
+    return pts
+
+
+def free_polytope(seed, points, max_constraints: int, radius: float) -> Optional[np.ndarray]:
+    """Halfspaces [max_constraints, 3] of a convex free region around `seed`
+    among occupied `points` [P, 2]; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    out = np.empty((max_constraints, 3), dtype=np.float64)
+    lib.free_polytope(float(seed[0]), float(seed[1]), _ptr(pts), pts.shape[0], max_constraints,
+                      radius, _ptr(out))
+    return out
 
 
 def prm_search(pos, tk, n_goals: int, pred, clear, dt: float, v_max: float,

@@ -44,8 +44,19 @@ MPC_HD float mrem(float a, float b) {
 }
 // torch.clamp(x, min=lo): NaN stays NaN.
 MPC_HD float mclamp_min(float x, float lo) { return max_nan(x, lo); }
+MPC_HD float mexp(float x) { return expf(x); }
+MPC_HD float mlog(float x) { return logf(x); }
+MPC_HD float mtan(float x) { return tanf(x); }
+MPC_HD float matan(float x) { return atanf(x); }
+MPC_HD float merf(float x) { return erff(x); }
+MPC_HD float mabs(float x) { return fabsf(x); }
+// torch.maximum / torch.minimum: a NaN operand gives NaN.
+MPC_HD float mmax(float a, float b) { return (a != a || a > b) ? a : b; }
+MPC_HD float mmin(float a, float b) { return (a != a || a < b) ? a : b; }
 // The value part, for predicates (comparisons look at values only).
 MPC_HD float mval(float x) { return x; }
+// d/dx erf(x) = 2 / sqrt(pi) exp(-x^2)
+MPC_HD float erf_slope(float x) { return 1.1283791670955126f * expf(-x * x); }
 
 // -- first order ----------------------------------------------------------
 template <int N>
@@ -189,6 +200,27 @@ MPC_HD Dual<N> mrem(const Dual<N>& a, float b) {
 // gradient where x >= min)
 template <int N>
 MPC_HD Dual<N> mclamp_min(const Dual<N>& a, float lo) { return a.v < lo ? Dual<N>(lo) : a; }
+template <int N>
+MPC_HD Dual<N> mexp(const Dual<N>& a) {
+  const float e = expf(a.v);
+  return chain1(a, e, e);
+}
+template <int N>
+MPC_HD Dual<N> mlog(const Dual<N>& a) { return chain1(a, logf(a.v), 1.0f / a.v); }
+template <int N>
+MPC_HD Dual<N> mtan(const Dual<N>& a) {
+  const float t = tanf(a.v);
+  return chain1(a, t, 1.0f + t * t);
+}
+template <int N>
+MPC_HD Dual<N> matan(const Dual<N>& a) { return chain1(a, atanf(a.v), 1.0f / (1.0f + a.v * a.v)); }
+template <int N>
+MPC_HD Dual<N> merf(const Dual<N>& a) { return chain1(a, erff(a.v), erf_slope(a.v)); }
+// d|x|/dx = sign(x), 0 at 0 (torch's)
+template <int N>
+MPC_HD Dual<N> mabs(const Dual<N>& a) {
+  return chain1(a, fabsf(a.v), a.v > 0.0f ? 1.0f : (a.v < 0.0f ? -1.0f : 0.0f));
+}
 template <int N>
 MPC_HD float mval(const Dual<N>& a) { return a.v; }
 
@@ -375,6 +407,77 @@ MPC_HD Dual2<N> mrem(const Dual2<N>& a, float b) {
 template <int N>
 MPC_HD Dual2<N> mclamp_min(const Dual2<N>& a, float lo) { return a.v < lo ? Dual2<N>(lo) : a; }
 template <int N>
+MPC_HD Dual2<N> mexp(const Dual2<N>& a) {
+  const float e = expf(a.v);
+  return chain2(a, e, e, e);
+}
+template <int N>
+MPC_HD Dual2<N> mlog(const Dual2<N>& a) {
+  const float q = 1.0f / a.v;
+  return chain2(a, logf(a.v), q, -q * q);
+}
+template <int N>
+MPC_HD Dual2<N> mtan(const Dual2<N>& a) {
+  const float t = tanf(a.v), d1 = 1.0f + t * t;
+  return chain2(a, t, d1, 2.0f * t * d1);
+}
+template <int N>
+MPC_HD Dual2<N> matan(const Dual2<N>& a) {
+  const float d1 = 1.0f / (1.0f + a.v * a.v);
+  return chain2(a, atanf(a.v), d1, -2.0f * a.v * d1 * d1);
+}
+template <int N>
+MPC_HD Dual2<N> merf(const Dual2<N>& a) {
+  const float d1 = erf_slope(a.v);
+  return chain2(a, erff(a.v), d1, -2.0f * a.v * d1);
+}
+template <int N>
+MPC_HD Dual2<N> mabs(const Dual2<N>& a) {
+  return chain2(a, fabsf(a.v), a.v > 0.0f ? 1.0f : (a.v < 0.0f ? -1.0f : 0.0f), 0.0f);
+}
+template <int N>
 MPC_HD float mval(const Dual2<N>& a) { return a.v; }
+
+// -- maximum / minimum on either kind of dual number -------------------------
+// The larger (smaller) operand with its derivatives; at a tie the mean of
+// the two, as torch.maximum's gradient splits it; a NaN value stays NaN.
+template <class D>
+MPC_HD D pick_extreme(const D& a, const D& b, bool a_wins, bool b_wins) {
+  if (a_wins) return a;
+  if (b_wins) return b;
+  return 0.5f * (a + b);
+}
+template <int N>
+MPC_HD Dual<N> mmax(const Dual<N>& a, const Dual<N>& b) {
+  return pick_extreme(a, b, a.v != a.v || a.v > b.v, b.v != b.v || b.v > a.v);
+}
+template <int N>
+MPC_HD Dual<N> mmin(const Dual<N>& a, const Dual<N>& b) {
+  return pick_extreme(a, b, a.v != a.v || a.v < b.v, b.v != b.v || b.v < a.v);
+}
+template <int N>
+MPC_HD Dual2<N> mmax(const Dual2<N>& a, const Dual2<N>& b) {
+  return pick_extreme(a, b, a.v != a.v || a.v > b.v, b.v != b.v || b.v > a.v);
+}
+template <int N>
+MPC_HD Dual2<N> mmin(const Dual2<N>& a, const Dual2<N>& b) {
+  return pick_extreme(a, b, a.v != a.v || a.v < b.v, b.v != b.v || b.v < a.v);
+}
+template <int N>
+MPC_HD Dual<N> mmax(const Dual<N>& a, float b) { return mmax(a, Dual<N>(b)); }
+template <int N>
+MPC_HD Dual<N> mmax(float a, const Dual<N>& b) { return mmax(Dual<N>(a), b); }
+template <int N>
+MPC_HD Dual<N> mmin(const Dual<N>& a, float b) { return mmin(a, Dual<N>(b)); }
+template <int N>
+MPC_HD Dual<N> mmin(float a, const Dual<N>& b) { return mmin(Dual<N>(a), b); }
+template <int N>
+MPC_HD Dual2<N> mmax(const Dual2<N>& a, float b) { return mmax(a, Dual2<N>(b)); }
+template <int N>
+MPC_HD Dual2<N> mmax(float a, const Dual2<N>& b) { return mmax(Dual2<N>(a), b); }
+template <int N>
+MPC_HD Dual2<N> mmin(const Dual2<N>& a, float b) { return mmin(a, Dual2<N>(b)); }
+template <int N>
+MPC_HD Dual2<N> mmin(float a, const Dual2<N>& b) { return mmin(Dual2<N>(a), b); }
 
 }  // namespace mpc

@@ -39,9 +39,20 @@
 // rewrites it between solves (K3). The code also builds
 // with a host compiler, where the team is one lane (common.cuh): that is
 // how the CPU tests run this very body against the plain solve_qp.
+//
+// MIRROR inside K1 (the reference's own design, pallas_qp.py:565-590): K1
+// may be handed the RAW stage Hessians. `mirror_stages` then regularizes
+// them before the solve, stage k on lane k (N + 1 <= 32 on every supported
+// horizon, else the lanes loop), all N + 1 Jacobis of an element side by
+// side in registers, and leaves the upper triangles where the launcher
+// says (shared memory, or a global scratch where shared memory would cost
+// the batch a wave: qp_kernel.cu); the solve reads H through an `HView`
+// (FullH: the caller's row-major matrices; PackedH: those triangles). No
+// standalone MIRROR launch, no slices and copies of H between the two.
 #pragma once
 
 #include "common.cuh"
+#include "mirror.cuh"
 #include "qp_launch.h"
 
 namespace mpc {
@@ -90,12 +101,54 @@ MPC_HD constexpr int tri(int n, int i, int j) {
   return i <= j ? i * n - i * (i - 1) / 2 + (j - i) : j * n - j * (j - 1) / 2 + (i - j);
 }
 
-// Floats of one element's working set (IPShared), and of its QP data
-// (H, g, A, Bm, c, Dh, lb, ub) plus its two dual arrays.
+// How the solve reads entry (i, j) of stage k's Hessian.
+template <class In, int NV>
+struct FullH {  // row-major [N+1, NV, NV]
+  In p;
+  MPC_DEV float operator()(int k, int i, int j) const { return p[(k * NV + i) * NV + j]; }
+};
+template <int NV>
+struct PackedH {  // upper triangles [N+1, NV (NV + 1) / 2], written by this launch
+  const float* p;
+  MPC_DEV float operator()(int k, int i, int j) const {
+    return p[k * (NV * (NV + 1) / 2) + tri(NV, i, j)];
+  }
+};
+
+// MIRROR of one element's raw stage Hessians Hraw [N+1, NV, NV] into packed
+// upper triangles Hm [N+1, NV (NV + 1) / 2], stage k on lane k (the
+// terminal node's zero u-block mirrors to lm on its diagonal, which the
+// solve never reads). Its own register allocation: a 9 x 9 Jacobi holds
+// 162 floats. Ends with a team_sync.
+template <int NU, int NX, class In>
+MPC_DEV_NOINLINE void mirror_stages(const float* Hraw, float* Hm, const int N, const float lm,
+                                    const bool x_only) {
+  constexpr int NV = NU + NX, NS = NV * (NV + 1) / 2;
+  for (int k = team_lane(); k <= N; k += kLanes) {
+    const In h{Hraw + k * NV * NV};
+    float a[NV * NV];
+#pragma unroll
+    for (int i = 0; i < NV * NV; ++i) a[i] = h[i];
+    mirror_stage<NU, NX>(a, lm, x_only);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int j = i; j < NV; ++j) Hm[k * NS + tri(NV, i, j)] = a[i * NV + j];
+  }
+  team_sync();
+}
+
+// Floats of one element's working set (IPShared), of its packed mirrored
+// Hessians, and of its QP data (H, g, A, Bm, c, Dh, lb, ub) plus its two
+// dual arrays.
 MPC_HD long long ip_shared_floats(int nu, int nx, int N, int nh) {
   const long long nv = nu + nx, rows = static_cast<long long>(N + 1) * (nv + nh);
   return 6 * rows + (N + 1) * (4 * nv + nv * (nv + 1) / 2)
          + static_cast<long long>(N) * (nx + nx * nx + 2 * nu * nx + nu * nu + nu);
+}
+MPC_HD long long packed_hessian_floats(int nu, int nx, int N) {
+  const long long nv = nu + nx;
+  return (N + 1) * (nv * (nv + 1) / 2);
 }
 MPC_HD long long qp_and_dual_floats(int nu, int nx, int N, int nh) {
   const long long nv = nu + nx, rows = static_cast<long long>(N + 1) * (nv + nh);
@@ -177,18 +230,19 @@ MPC_HD IPElement qp_element(const QPLaunch& a, const long long b) {
   return q;
 }
 
-// Solves q with the team; leaves dz in m.zeta and the duals in
-// q.lam_l/q.lam_u, and returns the final complementarity mu (the same
-// value on every lane). Ends with a team_sync.
-template <int NU, int NX, class In>
-MPC_DEV float ip_solve(const IPElement& q, const IPShared<NU, NX>& m) {
+// Solves q with the team, reading the stage Hessians through H (q.H is not
+// read); leaves dz in m.zeta and the duals in q.lam_l/q.lam_u, and returns
+// the final complementarity mu (the same value on every lane). Ends with a
+// team_sync.
+template <int NU, int NX, class In, class HView>
+MPC_DEV float ip_solve(const IPElement& q, const IPShared<NU, NX>& m, const HView H) {
   constexpr int NV = NU + NX, NS = NV * (NV + 1) / 2;
   const int N = q.N, nh = q.nh, NR = NV + nh, NHD = nh > 0 ? nh : 1;
   const int R1 = (N + 1) * NR, NZ = (N + 1) * NV;
   const int lane = team_lane();
   const bool writer = lane == 0;  // of what the serial parts store
 
-  const In H{q.H}, g{q.g}, A{q.A}, Bm{q.Bm}, c{q.c}, Dh{q.Dh}, lb{q.lb}, ub{q.ub};
+  const In g{q.g}, A{q.A}, Bm{q.Bm}, c{q.c}, Dh{q.Dh}, lb{q.lb}, ub{q.ub};
   float* const lam_l = q.lam_l;
   float* const lam_u = q.lam_u;
 
@@ -395,7 +449,7 @@ MPC_DEV float ip_solve(const IPElement& q, const IPShared<NU, NX>& m) {
         ++i;
       }
       j += i;
-      float acc = H[(k * NV + i) * NV + j] + (i == j ? w[k * NR + i] : 0.0f);
+      float acc = H(k, i, j) + (i == j ? w[k * NR + i] : 0.0f);
       for (int r = 0; r < nh; ++r)
         acc += Dh[(k * NHD + r) * NV + i] * Dh[(k * NHD + r) * NV + j] * w[k * NR + NV + r];
       m.Hb[t] = acc;
@@ -412,10 +466,10 @@ MPC_DEV float ip_solve(const IPElement& q, const IPShared<NU, NX>& m) {
       m.req[t] = acc + acc2 + c[t] - m.zeta[(k + 1) * NV + NU + i];
     }
     for (int t = lane; t < NZ; t += kLanes) {
-      const int k = t / NV;
+      const int k = t / NV, i = t - k * NV;
       float acc = 0.0f;
 #pragma unroll
-      for (int j = 0; j < NV; ++j) acc += H[t * NV + j] * m.zeta[k * NV + j];
+      for (int j = 0; j < NV; ++j) acc += H(k, i, j) * m.zeta[k * NV + j];
       m.gst[t] = g[t] + acc;
     }
     team_sync();
@@ -593,6 +647,27 @@ MPC_DEV float ip_solve(const IPElement& q, const IPShared<NU, NX>& m) {
   const float mu = complementarity();
   team_sync();
   return mu;
+}
+
+// The same with the Hessians as the caller's full matrices q.H.
+template <int NU, int NX, class In>
+MPC_DEV float ip_solve(const IPElement& q, const IPShared<NU, NX>& m) {
+  return ip_solve<NU, NX, In>(q, m, FullH<In, NU + NX>{In{q.H}});
+}
+
+// One element of K1: with MIRROR, q.H holds RAW Hessians; they are
+// regularized into `Hm` (packed_hessian_floats of the team's own) and the
+// solve reads those. A template parameter, so that a kernel carries the one
+// ip_solve it runs (and the registers of that one).
+template <int NU, int NX, bool MIRROR, class In, class HIn>
+MPC_DEV float qp_solve(const IPElement& q, const IPShared<NU, NX>& m, float* Hm, const float lm,
+                       const bool x_only) {
+  if constexpr (MIRROR) {
+    mirror_stages<NU, NX, HIn>(q.H, Hm, q.N, lm, x_only);
+    return ip_solve<NU, NX, In>(q, m, PackedH<NU + NX>{Hm});
+  } else {
+    return ip_solve<NU, NX, In>(q, m);
+  }
 }
 
 }  // namespace mpc

@@ -17,12 +17,18 @@ cudaError_t launch_mirror(const float* H, float* out, int64_t M, int n, float lm
 
 // K1: see qp_launch.h for its arguments.
 // Dynamic shared memory of one block (= one warp = one element), in bytes,
-// without or with the QP's data and duals staged.
-int64_t qp_shared_bytes(int N, int nu, int nx, int nh, bool staged);
+// without or with the QP's data and duals staged, and without or with the
+// MIRROR of raw Hessians inside the kernel.
+int64_t qp_shared_bytes(int N, int nu, int nx, int nh, bool staged, bool mirror);
 
 // One-warp blocks with that much dynamic shared memory that the current
 // device holds at once.
 int64_t qp_resident_blocks(int64_t shared_bytes_per_block);
+
+// Whether a launch with the MIRROR inside keeps the regularized Hessians in
+// the caller's scratch QPLaunch::Hm: where they would cost the batch another
+// wave of blocks in shared memory (never in the staged mode).
+bool qp_mirror_in_global(int64_t B, int N, int nu, int nx, int nh);
 
 // Returns cudaErrorInvalidValue for an (nu, nx) pair the kernel is not
 // instantiated for, or a working set above the 227 KB a block can have.

@@ -1,7 +1,8 @@
 // MIRROR regularization (eigenvalues -> max(|w|, lm)) of one small
 // symmetric matrix held in registers, by cyclic Jacobi. Shared by K2
-// (mirror_kernel.cu, one thread per matrix) and K3 (rti_kernel.cuh, on
-// each stage Hessian inside the linearization).
+// (mirror_kernel.cu, one thread per matrix), K1 (ip_solve.cuh::
+// mirror_stages, stage k on lane k before the solve) and K3
+// (rti_kernel.cuh, on each stage Hessian inside the linearization).
 //
 // Same rotation order and formulas as mpc_planner_tpu/ops/pallas_qp.py::
 // _mirror_lanes (:101-140) and the plain torch version
@@ -81,6 +82,32 @@ MPC_HD void mirror_inplace(float (&a)[n * n], float lm, int sweeps) {
       a[i * n + k] = acc;
     }
   }
+}
+
+// MIRROR of a stage Hessian in registers: the whole NV x NV matrix, or
+// (x_only: u-block diagonal and decoupled, solver/sqp.py's probe)
+// max(|H_uu|, lm) on the u-diagonal and the Jacobi on the NX x NX x-block
+// (mpc_planner_tpu/ops/pallas_qp.py::_mirror_nvar_lanes :143-165).
+template <int NU, int NX>
+MPC_HD void mirror_stage(float (&H)[(NU + NX) * (NU + NX)], float lm, bool x_only) {
+  constexpr int NV = NU + NX;
+  if (!x_only) {
+    mirror_inplace<NV>(H, lm, 6);
+    return;
+  }
+  float hx[NX * NX], du[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) hx[i * NX + j] = H[(NU + i) * NV + NU + j];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) du[i] = max_nan(fabsf(H[i * NV + i]), lm);
+  mirror_inplace<NX>(hx, lm, 6);
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      H[i * NV + j] = (i >= NU && j >= NU) ? hx[(i - NU) * NX + j - NU] : (i == j ? du[i] : 0.0f);
 }
 
 }  // namespace mpc

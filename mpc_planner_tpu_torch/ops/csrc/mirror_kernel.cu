@@ -7,38 +7,55 @@
 // (pallas_qp.py:101-140), so the plain torch version
 // (mpc_planner_tpu_torch/ops/jacobi_eigh.py) agrees to f32 rounding.
 //
-// Design: one thread per matrix, running mirror.cuh's Jacobi (which K3
-// shares); the n*n entries of A and V live in registers (every index is a
-// compile-time constant after unrolling, for n <= 9). The work is ~6 sweeps x n(n-1)/2 rotations x 6n FMAs per
-// matrix against 2 n^2 floats of traffic, so at the solver's stacks
-// ([B*(N+1), 5, 5] at B=1024, N=30) the bound is the per-thread
-// dependent arithmetic, not memory.
+// Design: one thread per matrix, running mirror.cuh's Jacobi (which K1 and
+// K3 share); the n*n entries of A and V live in registers (every index is
+// a compile-time constant after unrolling, for n <= 9). The work is ~6
+// sweeps x n(n-1)/2 rotations x 6n FMAs per matrix against 2 n^2 floats of
+// traffic, so the bound is the per-thread dependent arithmetic, not
+// memory; what memory costs is latency. A thread's matrix is n*n
+// consecutive floats, so direct loads would stride by n*n floats across a
+// warp: the block moves its 128 matrices through shared memory instead,
+// with consecutive threads on consecutive floats both ways, and a thread
+// reads its own matrix from a row of odd stride (no bank conflicts).
+// The solver's unfused route no longer launches this kernel (K1 runs the
+// MIRROR itself); it serves callers that hold a bare stack.
 
 #include "kernels.h"
 #include "mirror.cuh"
 
 namespace {
 
+constexpr int kThreads = 128;
+
 template <int n>
-__global__ void mirror_kernel(const float* __restrict__ H, float* __restrict__ out,
-                              int64_t M, float lm, int sweeps) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const float* h = H + m * n * n;
-  float a[n * n];
+__global__ void __launch_bounds__(kThreads) mirror_kernel(const float* __restrict__ H,
+                                                          float* __restrict__ out, int64_t M,
+                                                          float lm, int sweeps) {
+  constexpr int nn = n * n, stride = nn | 1;
+  __shared__ float tile[kThreads * stride];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int count = static_cast<int>(M - first < kThreads ? M - first : kThreads);
+  const float* h = H + first * nn;
+  for (int i = threadIdx.x; i < count * nn; i += kThreads) tile[(i / nn) * stride + i % nn] = h[i];
+  __syncthreads();
+  if (threadIdx.x < count) {
+    float* mine = tile + threadIdx.x * stride;
+    float a[nn];
 #pragma unroll
-  for (int i = 0; i < n * n; ++i) a[i] = h[i];
-  mpc::mirror_inplace<n>(a, lm, sweeps);
-  float* o = out + m * n * n;
+    for (int i = 0; i < nn; ++i) a[i] = mine[i];
+    mpc::mirror_inplace<n>(a, lm, sweeps);
 #pragma unroll
-  for (int i = 0; i < n * n; ++i) o[i] = a[i];
+    for (int i = 0; i < nn; ++i) mine[i] = a[i];
+  }
+  __syncthreads();
+  float* o = out + first * nn;
+  for (int i = threadIdx.x; i < count * nn; i += kThreads) o[i] = tile[(i / nn) * stride + i % nn];
 }
 
 template <int n>
 void launch(const float* H, float* out, int64_t M, float lm, int sweeps, cudaStream_t stream) {
-  constexpr int threads = 128;
-  const int64_t blocks = (M + threads - 1) / threads;
-  mirror_kernel<n><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(H, out, M, lm, sweeps);
+  const int64_t blocks = (M + kThreads - 1) / kThreads;
+  mirror_kernel<n><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(H, out, M, lm, sweeps);
 }
 
 }  // namespace

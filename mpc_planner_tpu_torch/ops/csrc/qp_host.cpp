@@ -9,15 +9,24 @@
 
 namespace {
 
-template <int NU, int NX>
-void solve(const QPLaunch& a) {
-  std::vector<float> shared(mpc::ip_shared_floats(NU, NX, a.N, a.nh));
+template <int NU, int NX, bool MIRROR>
+void solve_as(const QPLaunch& a) {
+  std::vector<float> shared(mpc::ip_shared_floats(NU, NX, a.N, a.nh)
+                            + mpc::packed_hessian_floats(NU, NX, a.N));
   const long long NZ = static_cast<long long>(a.N + 1) * (NU + NX);
   for (long long b = 0; b < a.B; ++b) {
     const mpc::IPShared<NU, NX> m(shared.data(), a.N, a.nh);
-    a.mu[b] = mpc::ip_solve<NU, NX, mpc::PlainView>(mpc::qp_element<NU, NX>(a, b), m);
+    a.mu[b] = mpc::qp_solve<NU, NX, MIRROR, mpc::PlainView, mpc::PlainView>(
+        mpc::qp_element<NU, NX>(a, b), m, shared.data() + mpc::ip_shared_floats(NU, NX, a.N, a.nh),
+        a.lm, a.mirror_x_only != 0);
     for (long long i = 0; i < NZ; ++i) a.dz[b * NZ + i] = m.zeta[i];
   }
+}
+
+template <int NU, int NX>
+void solve(const QPLaunch& a) {
+  if (a.mirror != 0) solve_as<NU, NX, true>(a);
+  else solve_as<NU, NX, false>(a);
 }
 
 }  // namespace

@@ -127,31 +127,6 @@ MPC_HD void seed(const float (&z)[NV], Dual2<NV> (&zd)[NV]) {
   }
 }
 
-// MIRROR of a running-stage Hessian in registers: the whole NV x NV matrix,
-// or (x_only: u-block diagonal and decoupled, solver/sqp.py's probe)
-// max(|H_uu|, lm) on the u-diagonal and the Jacobi on the NX x NX x-block.
-template <int NU, int NX>
-MPC_HD void mirror_stage(float (&H)[(NU + NX) * (NU + NX)], float lm, bool x_only) {
-  constexpr int NV = NU + NX;
-  if (!x_only) {
-    mirror_inplace<NV>(H, lm, 6);
-    return;
-  }
-  float hx[NX * NX], du[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) hx[i * NX + j] = H[(NU + i) * NV + NU + j];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) du[i] = max_nan(fabsf(H[i * NV + i]), lm);
-  mirror_inplace<NX>(hx, lm, 6);
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int j = 0; j < NV; ++j)
-      H[i * NV + j] = (i >= NU && j >= NU) ? hx[(i - NU) * NX + j - NU] : (i == j ? du[i] : 0.0f);
-}
-
 // Linearization of one element at the iterate Z [N+1, NV] with parameters
 // P [N+1, NP] (pallas_rti.py:81-137 stage for stage), stage k on lane k:
 // a running stage (cost derivatives + MIRROR, dynamics Jacobian, constraint

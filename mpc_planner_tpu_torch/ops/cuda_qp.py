@@ -9,6 +9,14 @@ arrays (ops/csrc/ip_solve.cuh has the design). They are compiled for sm_90a with
 torch.utils.cpp_extension.load at first use, into the package's `_build/`
 directory; nothing is compiled or imported when this module is imported.
 
+MIRROR inside K1: `solve_qp_cuda(..., mirror_lm=lm, mirror_x_only=...)`
+takes the RAW stage Hessians in `qp.H` and regularizes them in the
+kernel's prologue (stage k on lane k, the reference's
+`solve_qp_pallas(mirror_in_kernel=True)`), which is what the solver's
+unfused route does on the cuda backend: no K2 launch and no round trip of
+H between the two. `mirror_lm=None` keeps the contract "H is already
+regularized". The standalone `mirror_cuda` serves callers with a bare stack.
+
 Each wrapper takes its kernel's plain torch version (solver/qp.py::
 solve_qp, ops/jacobi_eigh.py::mirror_unpacked) only for tensors that lie
 on the CPU. For a CUDA tensor it launches the kernel or raises: a failed
@@ -28,7 +36,7 @@ import threading
 
 import torch
 
-from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_unpacked
+from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_nvar, mirror_unpacked
 from mpc_planner_tpu_torch.solver.qp import QPData, QPSolution, solve_qp
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -171,34 +179,63 @@ def solve_qp_cuda(
     warm_duals=None,
     mehrotra: bool = True,
     sigma_fixed: float = 0.1,
+    mirror_lm=None,
+    mirror_x_only: bool = False,
 ) -> QPSolution:
     """Batched QP solve with the solve_qp_pallas contract: QPData with a
-    leading batch axis. One launch, one warp per batch element."""
+    leading batch axis. One launch, one warp per batch element. With
+    `mirror_lm` a float, `qp.H` holds RAW stage Hessians and the kernel
+    MIRRORs them first (eigenvalues -> max(|w|, mirror_lm); `mirror_x_only`:
+    the u-block is diagonal and decoupled, only the x-block is
+    eigendecomposed); None: H is regularized already."""
     if qp.H.device.type == "cpu":
-        return solve_qp(qp, nu, nx, iterations=iterations, mu0=mu0, reg=reg, tau=tau,
-                        warm_duals=warm_duals, mehrotra=mehrotra, sigma_fixed=sigma_fixed)
+        return solve_qp(_mirrored(qp, nu, mirror_lm, mirror_x_only), nu, nx, iterations=iterations,
+                        mu0=mu0, reg=reg, tau=tau, warm_duals=warm_duals, mehrotra=mehrotra,
+                        sigma_fixed=sigma_fixed)
     if qp.H.device.type != "cuda":
         raise ValueError(f"solve_qp_cuda takes CUDA (or CPU) tensors, got {qp.H.device}")
     inputs, outputs, N, nh = _qp_arguments(qp, nu, nx, warm_duals)
-    load_kernels().qp(inputs, outputs, N, nu, nx, nh, int(iterations), float(mu0), float(reg),
-                      float(tau), warm_duals is not None, bool(mehrotra), float(sigma_fixed))
+    # The kernel keeps the regularized Hessians (packed triangles) in its shared
+    # memory, unless that would cost the batch another wave of blocks: only
+    # then does it take a global scratch.
+    ext = load_kernels()
+    B, nvar = qp.H.shape[0], nu + nx
+    scratch = outputs[3]
+    if mirror_lm is not None and ext.qp_mirror_in_global(B, N, nu, nx, nh):
+        scratch = torch.empty(B * (N + 1) * (nvar * (nvar + 1) // 2), device=qp.H.device)
+    ext.qp(inputs, [*outputs, scratch], N, nu, nx, nh, int(iterations), float(mu0),
+           float(reg), float(tau), warm_duals is not None, bool(mehrotra),
+           float(sigma_fixed), mirror_lm is not None, float(mirror_lm or 0.0),
+           bool(mirror_x_only))
     launch_counts["qp"] += 1
     return QPSolution(*outputs)
+
+
+def _mirrored(qp: QPData, nu: int, lm, x_only: bool) -> QPData:
+    """The plain version of K1's MIRROR prologue: qp with its stage
+    Hessians regularized (`lm` None: as it is)."""
+    if lm is None:
+        return qp
+    nvar = qp.H.shape[-1]
+    H = mirror_nvar(qp.H.reshape(-1, nvar, nvar), lm, nu, x_only, mirror_unpacked)
+    return qp._replace(H=H.reshape(qp.H.shape))
 
 
 class _QPLaunch(ctypes.Structure):
     """ops/csrc/qp_launch.h::QPLaunch."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("H", "g", "A", "Bm", "c", "Dh", "lb", "ub", "wl", "wu",
-                                                "wok", "dz", "lam_l", "lam_u", "mu")]
+                                                "wok", "dz", "lam_l", "lam_u", "mu", "Hm")]
                 + [(n, ctypes.c_int) for n in ("B", "N", "nu", "nx", "nh", "iterations")]
                 + [(n, ctypes.c_float) for n in ("mu0", "reg", "tau", "sigma_fixed")]
-                + [(n, ctypes.c_int) for n in ("use_warm", "mehrotra")])
+                + [(n, ctypes.c_int) for n in ("use_warm", "mehrotra", "mirror", "mirror_x_only",
+                                               "hm_global")]
+                + [("lm", ctypes.c_float)])
 
 
 def solve_qp_host(qp: QPData, nu: int, nx: int, iterations: int, build_dir: str, mu0: float = 1e1,
                   reg: float = 1e-7, tau: float = 0.995, warm_duals=None, mehrotra: bool = True,
-                  sigma_fixed: float = 0.1) -> QPSolution:
+                  sigma_fixed: float = 0.1, mirror_lm=None, mirror_x_only: bool = False) -> QPSolution:
     """K1's body (ops/csrc/ip_solve.cuh) built with the host compiler into
     `build_dir` (ops/csrc/qp_host.cpp: a team of one lane) and run on CPU
     tensors, with solve_qp_cuda's contract. For the CPU tests: the port's
@@ -208,9 +245,10 @@ def solve_qp_host(qp: QPData, nu: int, nx: int, iterations: int, build_dir: str,
     inputs, outputs, N, nh = _qp_arguments(qp, nu, nx, warm_duals)
     fn = load_c_library("mpc_qp_host", [os.path.join(CSRC, "qp_host.cpp")], build_dir).mpc_qp_solve_host
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.POINTER(_QPLaunch)]
-    args = _QPLaunch(*(t.data_ptr() for t in (*inputs, *outputs)), qp.D.shape[0], N, nu, nx, nh,
+    args = _QPLaunch(*(t.data_ptr() for t in (*inputs, *outputs)), None, qp.D.shape[0], N, nu, nx, nh,
                      int(iterations), float(mu0), float(reg), float(tau), float(sigma_fixed),
-                     int(warm_duals is not None), int(bool(mehrotra)))
+                     int(warm_duals is not None), int(bool(mehrotra)), int(mirror_lm is not None),
+                     int(bool(mirror_x_only)), 0, float(mirror_lm or 0.0))
     if fn(ctypes.byref(args)):
         raise RuntimeError(f"qp host build has no instantiation for (nu={nu}, nx={nx})")
     return QPSolution(*outputs)
@@ -246,11 +284,14 @@ def riccati_step_flops(nu: int, nx: int) -> int:
 
 
 def qp_work(N: int, nu: int, nx: int, nh: int, iterations: int, mehrotra: bool = True,
-            warm: bool = False):
+            warm: bool = False, mirror: bool = False, mirror_x_only: bool = False):
     """(flops, bytes) of ONE element's solve in K1, counted from
     ip_solve.cuh pass by pass (adds, multiplies and divisions count 1 each,
     comparisons and selects 0; the fixed-count loop does all of it whatever
-    the data). Bytes: every input read once, every output written once."""
+    the data). `mirror`: plus the MIRROR of the N+1 raw stage Hessians in
+    the prologue (the x-block's Jacobi and nu clips where `mirror_x_only`).
+    Bytes: every input read once, every output written once (the same with
+    or without the MIRROR: H comes in once either way)."""
     nv = nu + nx
     nr = nv + nh
     rows, nz, ns = (N + 1) * nr, (N + 1) * nv, nv * (nv + 1) // 2
@@ -273,6 +314,8 @@ def qp_work(N: int, nu: int, nx: int, nh: int, iterations: int, mehrotra: bool =
                      + (direction + 12) * rows  # step lengths
                      + 2 * nz + (direction + 10) * rows)  # update
     flops = 7 * rows + iterations * per_iteration + 6 * rows  # init, loop, final mu
+    if mirror:
+        flops += (N + 1) * (mirror_work(nx)[0] + nu if mirror_x_only else mirror_work(nv)[0])
     floats = ((N + 1) * (nv * nv + nv + nh * nv + 2 * nr) + N * (nx * nx + nx * nu + nx)  # QP
               + (2 * rows + 1 if warm else 0)  # warm duals, ok
               + nz + 2 * rows + 1)  # dz, duals, mu

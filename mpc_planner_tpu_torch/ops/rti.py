@@ -77,8 +77,12 @@ def stage_derivatives(ocp, Z, P) -> StageDerivatives:
     if nh:
         Jh, h = vmap(jacfwd(_with_aux(ocp.constraint_fn), has_aux=True))(Zr, Pr)
         Jh, h = per_stage(Jh), per_stage(h)
-    return StageDerivatives(f=per_stage(f), Jf=per_stage(Jf), g_run=per_stage(g_run),
-                            H_run=per_stage(H_run), g_term=g_term, H_term=H_term, h=h, Jh=Jh)
+    out = StageDerivatives(f=per_stage(f), Jf=per_stage(Jf), g_run=per_stage(g_run),
+                           H_run=per_stage(H_run), g_term=g_term, H_term=H_term, h=h, Jh=Jh)
+    # torch.func's forward mode promotes the tangent of `0-d tensor (op)
+    # Python float` to float64 (the bicycle's v / lr, the chance
+    # constraint's sqrt(2 a'Sa)), and the Jacobian with it: back to Z's type.
+    return StageDerivatives(*(None if x is None else x.to(Z.dtype) for x in out))
 
 
 def linearize_torch(ocp, Z, P, lb_template, ub_template, lm: float,

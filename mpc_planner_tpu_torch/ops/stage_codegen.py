@@ -52,6 +52,12 @@ _UNARY = {
     _aten.sin.default: "msin({})",
     _aten.cos.default: "mcos({})",
     _aten.sigmoid.default: "msigmoid({})",
+    _aten.exp.default: "mexp({})",
+    _aten.log.default: "mlog({})",
+    _aten.tan.default: "mtan({})",
+    _aten.atan.default: "matan({})",
+    _aten.erf.default: "merf({})",
+    _aten.abs.default: "mabs({})",
 }
 _BINARY = {
     _aten.add.Tensor: "{} + {}",
@@ -60,6 +66,8 @@ _BINARY = {
     _aten.div.Tensor: "{} / {}",
     _aten.rsub.Scalar: "{1} - {0}",
     _aten.remainder.Scalar: "mrem({}, {})",  # floor mod; the derivative is a's
+    _aten.maximum.default: "mmax({}, {})",
+    _aten.minimum.default: "mmin({}, {})",
 }
 # Comparisons give one bool per scalar, evaluated on the value part of a
 # dual number (mval); a predicate of p only stays a plain float branch.
@@ -72,7 +80,8 @@ _LOGICAL = {
     _aten.bitwise_and.Tensor: "{} && {}",
     _aten.bitwise_not.default: "!{}",
 }
-_SHAPE_OPS = (_aten.select.int, _aten.slice.Tensor, _aten.stack.default, _aten.unsqueeze.default,
+_SHAPE_OPS = (_aten.alias.default, _aten.select.int, _aten.slice.Tensor, _aten.stack.default,
+              _aten.cat.default, _aten.unsqueeze.default,
               _aten.new_zeros.default, _aten.zeros_like.default, _aten.ones_like.default,
               _aten.scalar_tensor.default, _aten.pow.Tensor_Scalar, _aten.sum.dim_IntList,
               _aten.where.self, _aten.clamp.default)
@@ -284,6 +293,8 @@ class _Function:
             x, e = args
             fmt = {2: "msq({})", 3: "mcube({})"}.get(e, "mpow({}, " + _literal(e) + ")")
             out = np.frompyfunc(lambda v: self._unary(fmt, v), 1, 1)(x)
+        elif op is _aten.alias.default:
+            out = args[0]
         elif op is _aten.select.int:
             x, dim, index = args
             out = np.take(x, index, axis=dim)
@@ -296,6 +307,9 @@ class _Function:
         elif op is _aten.stack.default:
             tensors, dim = (args + [0])[:2]
             out = np.stack([_as_array(t) for t in tensors], axis=dim)
+        elif op is _aten.cat.default:
+            tensors, dim = (args + [0])[:2]
+            out = np.concatenate([_as_array(t) for t in tensors], axis=dim)
         elif op is _aten.unsqueeze.default:
             x, dim = args
             out = np.expand_dims(_as_array(x), dim)

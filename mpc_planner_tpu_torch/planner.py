@@ -37,9 +37,10 @@ logger = logging.getLogger(__name__)
 
 class Planner:
     """Ref mpc_planner/include/mpc_planner/planner.h:34-68 API. `device`
-    is where the solver's tensors live ("cpu" or a CUDA device)."""
+    is where the solver's tensors live: None (the default) is the card,
+    cuda:0, and an error without CUDA; "cpu" runs the plain versions."""
 
-    def __init__(self, model, modules: ModuleManager, cfg, device="cpu"):
+    def __init__(self, model, modules: ModuleManager, cfg, device=None):
         self.cfg = cfg
         self.model = model
         self.modules = modules

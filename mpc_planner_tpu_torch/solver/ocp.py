@@ -39,6 +39,7 @@ class OCP:
         self.nu = model.nu
         self.nx = model.nx
         self.nvar = model.nvar
+        self.num_segments = cfg.contouring.num_segments  # read by the CA models' spline update
 
         # Parameter registry (offline half of every module)
         self.params = ParameterRegistry()

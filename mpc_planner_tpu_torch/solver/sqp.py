@@ -11,9 +11,14 @@ globalization, generate_acados_solver.py:155-162).
   * MIRROR and the QP run on the configured backend: "cuda" launches the
     hand-written Hopper kernels (ops/cuda_qp.py), "torch" runs their
     plain versions (solver/qp.py, ops/jacobi_eigh.py).
-  * `solver.rti_fused="on"` on the cuda backend runs the whole RTI loop
+    On the cuda backend the unfused loop hands K1 the RAW Hessians and
+    K1 runs the MIRROR itself (no standalone MIRROR launch).
+  * The fused route on the cuda backend runs the whole RTI loop
     (linearization with generated derivative code, MIRROR, every QP) in
-    one launch of the fused kernel (ops/cuda_rti.py); "auto" resolves off.
+    one launch of the fused kernel (ops/cuda_rti.py). `solver.rti_fused`:
+    "on" asks for it, "auto" takes it wherever it can be built
+    (`SQPSolver.rti_fused_reason` says why not), "off" keeps the unfused
+    loop.
   * One batched RTI loop serves every caller: `solve` is a batch of one.
     The per-cycle stall escalation reads exit codes on the host, a
     deliberate host sync, as in the reference.
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 from torch.func import hessian, vmap
 
+from mpc_planner_tpu_torch import default_device
 from mpc_planner_tpu_torch.ops.cuda_qp import QP_SHAPES, mirror_cuda, solve_qp_cuda
 from mpc_planner_tpu_torch.ops.cuda_rti import solve_rti_cuda
 from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_nvar, mirror_unpacked
@@ -79,9 +85,11 @@ def resolve_qp_backend(backend: str, device: torch.device, nu: int, nx: int) -> 
 
 
 class SQPSolver:
-    """SQP-RTI solver for one OCP specification on one device."""
+    """SQP-RTI solver for one OCP specification on one device: the card
+    (`device=None`: cuda:0, an error without CUDA) unless the caller asks
+    for another, as the CPU tests do with `device="cpu"`."""
 
-    def __init__(self, ocp: OCP, device="cpu", iterations: Optional[int] = None,
+    def __init__(self, ocp: OCP, device=None, iterations: Optional[int] = None,
                  qp_iterations: Optional[int] = None):
         # Full-precision f32 products: TF32 breaks Riccati positive
         # definiteness (the reference forces "highest" for the same
@@ -90,7 +98,7 @@ class SQPSolver:
         torch.backends.cudnn.allow_tf32 = False
 
         self.ocp = ocp
-        self.device = torch.device(device)
+        self.device = default_device(device)
         cfg = ocp.cfg
         s = cfg.solver
         self.iterations = s.iterations if iterations is None else iterations
@@ -111,18 +119,20 @@ class SQPSolver:
 
         self.qp_backend = resolve_qp_backend(s.qp_backend, self.device, nu, nx)
 
-        # Fused route: the whole RTI loop in one launch of K3. "auto"
-        # resolves off, as in the reference (mpc_planner_tpu/solver/
-        # sqp.py:195-207). SQP mode needs the per-iteration convergence
-        # freeze, and corrector-only warm QPs a Mehrotra flag for the first
-        # QP that differs from the later ones: both stay unfused.
+        # Fused route: the whole RTI loop in one launch of K3, where the
+        # reference's conditions hold (mpc_planner_tpu/solver/sqp.py:187-194:
+        # SQP mode needs the per-iteration convergence freeze, and
+        # corrector-only warm QPs a Mehrotra flag for the first QP that
+        # differs from the later ones: both stay unfused) and the stage-code
+        # generator covers the OCP. "on" raises here for an OCP it does not
+        # cover; "auto" then resolves off, and `rti_fused_reason` names the
+        # op and the stage function. (The reference's "auto" resolves off
+        # always, because its TPU compiler cannot build the fused program,
+        # sqp.py:195-207; nvcc builds this one in about a minute.)
         if s.rti_fused not in ("auto", "on", "off"):
             raise ValueError(f"rti_fused must be 'auto', 'on' or 'off', got {s.rti_fused!r}")
-        self.rti_fused = (s.rti_fused == "on" and self.qp_backend == "cuda"
-                          and self.solver_type == "SQP_RTI" and not self.warm_corrector_only)
         self._stage_code = StageCode(ocp)
-        if self.rti_fused:
-            self._stage_code.generate()  # an unsupported op raises here, at construction
+        self.rti_fused, self.rti_fused_reason = self._resolve_fused(s.rti_fused)
 
         # Static row templates: box rows are the identity over z; masks
         # switch off u-box + h rows at the terminal node, x-box rows at
@@ -165,6 +175,23 @@ class SQPSolver:
         else:
             self._mirror_x_only = structure == "x_only"
 
+    def _resolve_fused(self, setting: str):
+        """(whether the fused route runs, why not)."""
+        if setting == "off":
+            return False, "solver.rti_fused is 'off'"
+        for ok, why in ((self.qp_backend == "cuda", f"the QP backend is {self.qp_backend!r}"),
+                        (self.solver_type == "SQP_RTI", f"solver_type is {self.solver_type!r}"),
+                        (not self.warm_corrector_only, "qp_warm_corrector_only is set")):
+            if not ok:
+                return False, why
+        try:
+            self._stage_code.generate()
+        except ValueError as e:  # an op the generator does not cover
+            if setting == "on":
+                raise
+            return False, str(e)
+        return True, ""
+
     def _probe_u_separable(self, n_probes: int = 4) -> bool:
         """True iff the running-cost Hessian's u-block is diagonal and its
         u-x cross block is zero at random probe points (the reference's
@@ -197,10 +224,12 @@ class SQPSolver:
         return mirror_nvar(H, self.lm, self.ocp.nu, self._mirror_x_only, self._mirror)
 
     # -- linearization ----------------------------------------------------
-    def _linearize(self, Z, P):
+    def _linearize(self, Z, P, raw_hessian: bool = False):
         """QPData of the batch Z [B, N+1, nvar], P [B, N+1, npar], with the
         stage Hessians MIRROR-regularized (the terminal row's zero u-block
-        mirrors to lm*I, which the QP's terminal stage never reads)."""
+        mirrors to lm*I, which the QP's terminal stage never reads), or
+        (`raw_hessian`) left exact for a QP kernel that regularizes them
+        itself."""
         ocp = self.ocp
         N, nu, nx, nvar, nh = ocp.N, ocp.nu, ocp.nx, ocp.nvar, ocp.nh
         Bb = Z.shape[0]
@@ -214,7 +243,8 @@ class SQPSolver:
         g_last = Z.new_zeros(Bb, 1, nvar)
         g_last[:, 0, nu:] = d.g_term[:, nu:]
         H = torch.cat([d.H_run, H_last], dim=1)
-        H = self._mirror_nvar(H.reshape(Bb * (N + 1), nvar, nvar)).reshape(Bb, N + 1, nvar, nvar)
+        if not raw_hessian:
+            H = self._mirror_nvar(H.reshape(Bb * (N + 1), nvar, nvar)).reshape(Bb, N + 1, nvar, nvar)
         g = torch.cat([d.g_run, g_last], dim=1)
 
         # Rows per stage: [u-box, x-box, h]; bounds shifted to the iterate.
@@ -233,10 +263,16 @@ class SQPSolver:
         return QPData(H=H, g=g, A=A, B=Bm, c=c, D=D, lb=lb, ub=ub,
                       mask_l=self._mask_l.expand(shape), mask_u=self._mask_u.expand(shape))
 
-    def _solve_qp(self, qp, **kw):
+    def _linearize_and_solve(self, Z, P, **kw):
+        """One RTI iteration's QP at the iterate Z: linearize, MIRROR,
+        solve. On the cuda backend K1 takes the raw Hessians and runs the
+        MIRROR in its prologue; on torch `_mirror_nvar` runs first."""
         ocp = self.ocp
-        fn = solve_qp_cuda if self.qp_backend == "cuda" else solve_qp
-        return fn(qp, ocp.nu, ocp.nx, mu0=self.mu0, sigma_fixed=self.warm_sigma, **kw)
+        common = dict(mu0=self.mu0, sigma_fixed=self.warm_sigma, **kw)
+        if self.qp_backend == "cuda":
+            return solve_qp_cuda(self._linearize(Z, P, raw_hessian=True), ocp.nu, ocp.nx,
+                                 mirror_lm=self.lm, mirror_x_only=self._mirror_x_only, **common)
+        return solve_qp(self._linearize(Z, P), ocp.nu, ocp.nx, **common)
 
     # -- batched SQP-RTI loop ---------------------------------------------
     def batch_impl(self, Z0, P, xinit, num_iterations: int, warm0=None,
@@ -259,15 +295,15 @@ class SQPSolver:
         # First QP: cold at the full count, unless duals come from the
         # previous control cycle; later RTI iterations warm-start from the
         # previous QP's duals and run the short warm count.
-        sol = self._solve_qp(
-            self._linearize(Z, P), iterations=self.qp_iterations if warm0 is None else wi,
+        sol = self._linearize_and_solve(
+            Z, P, iterations=self.qp_iterations if warm0 is None else wi,
             warm_duals=warm0, mehrotra=(warm0 is None) or warm_mehrotra)
         Z = Z + sol.dz  # FIXED_STEP globalization
         done = sol.dz.abs().amax(dim=(1, 2)) < self.tol_stat
         iters = torch.ones(Z.shape[0], dtype=torch.int32, device=Z.device)
         for _ in range(num_iterations - 1):
-            sol = self._solve_qp(
-                self._linearize(Z, P), iterations=wi,
+            sol = self._linearize_and_solve(
+                Z, P, iterations=wi,
                 warm_duals=(sol.lam_l, sol.lam_u, sol.mu < 1e-2), mehrotra=warm_mehrotra)
             if sqp_mode:
                 Z = torch.where(done[:, None, None], Z, Z + sol.dz)

@@ -99,6 +99,8 @@ class RealTimeData:
         self.right_bound: Optional[np.ndarray] = None  # [P, 2]
         self.goal: Optional[np.ndarray] = None  # [2]
         self.goal_received: bool = False
+        self.costmap: Optional[np.ndarray] = None  # occupancy grid [H, W]
+        self.costmap_meta: Optional[Dict[str, float]] = None  # origin_x/y, resolution
         self.planning_start_time: float = 0.0
         self.obstacle_block = None  # ObstacleBlock (struct-of-arrays, padded)
         self.ego_position: np.ndarray = np.zeros(2)
@@ -117,6 +119,9 @@ class ModuleData:
     def __init__(self):
         self.static_obstacles: Optional[np.ndarray] = None  # [N, H, 3] rows (a1, a2, b)
         self.path = None  # PathSpline2D
+        self.path_velocity = None  # CubicSpline of v(s)
+        self.path_width_left = None  # CubicSpline
+        self.path_width_right = None  # CubicSpline
         self.current_path_segment: int = 0
         self.warmstart: Optional[np.ndarray] = None  # [N+1, nvar] ego prediction
         self.warmstart_xy: Optional[np.ndarray] = None  # [N+1, 2]

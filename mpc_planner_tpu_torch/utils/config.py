@@ -9,8 +9,9 @@ the same overrides.
 Backend selection differs: the reference's TPU keys (`qp_backend`
 "pallas"/"xla", `qp_wide_blocks`, `qp_mirror_in_kernel`) give way to
 `qp_backend: "auto" | "cuda" | "torch"`; `rti_fused: "auto" | "on" |
-"off"` keeps the reference's meaning (the fused whole-RTI kernel, on the
-cuda backend; "auto" resolves off).
+"off"` keeps the reference's key (the fused whole-RTI kernel, on the cuda
+backend), but "auto" turns it on wherever it can be built. No `scenario`
+section yet (SH-MPC is not ported).
 """
 
 from __future__ import annotations
@@ -62,6 +63,14 @@ class TMPCConfig:
 class ProbabilisticConfig:
     enable: bool = True
     risk: float = 0.05
+    propagate_uncertainty: bool = True
+
+
+@dataclass(frozen=True)
+class DecompConfig:
+    range: float = 2.0
+    max_constraints: int = 12
+    occupancy_threshold: int = 127
 
 
 @dataclass(frozen=True)
@@ -74,6 +83,7 @@ class RoadConfig:
 class RobotConfig:
     length: float = 0.65
     width: float = 0.65
+    com_to_back: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -85,10 +95,13 @@ class SolverConfig:
     # when the solver's device is CUDA and the QP kernel is instantiated
     # for (nu, nx) (ops/cuda_qp.py::QP_SHAPES), else torch.
     qp_backend: str = "auto"
-    # "on": with the cuda backend, SQP_RTI and Mehrotra warm QPs, the whole
-    # RTI loop runs in one launch of the fused kernel K3 (ops/cuda_rti.py);
-    # otherwise the unfused loop. "auto" resolves off, as in the reference
-    # (mpc_planner_tpu/solver/sqp.py:195-207).
+    # The fused route: with the cuda backend, SQP_RTI and Mehrotra warm QPs,
+    # the whole RTI loop runs in one launch of the fused kernel K3
+    # (ops/cuda_rti.py). "auto" takes it wherever those hold and the
+    # stage-code generator covers the OCP (SQPSolver.rti_fused_reason says
+    # why not); "on" raises for an OCP it does not cover; "off": the
+    # unfused loop. (The reference's "auto" resolves off: its compiler
+    # cannot build the fused program, mpc_planner_tpu/solver/sqp.py:195-207.)
     rti_fused: str = "auto"
     solver_type: str = "SQP_RTI"  # or "SQP"
     tol_stationarity: float = 1e-3  # ref settings.yaml tolstat
@@ -138,6 +151,7 @@ class Config:
     contouring: ContouringConfig = field(default_factory=ContouringConfig)
     t_mpc: TMPCConfig = field(default_factory=TMPCConfig)
     probabilistic: ProbabilisticConfig = field(default_factory=ProbabilisticConfig)
+    decomp: DecompConfig = field(default_factory=DecompConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
     linearized_add_halfspaces: int = 0  # ref settings.yaml linearized_constraints
 

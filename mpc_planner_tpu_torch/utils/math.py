@@ -9,6 +9,12 @@ import numpy as np
 import torch
 
 
+def rotation_matrix(angle: torch.Tensor) -> torch.Tensor:
+    """2D rotation matrix of a tensor angle -> [..., 2, 2]."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Four-quadrant arctangent with the reference's arithmetic.
 
@@ -51,3 +57,52 @@ def exponential_quantile(lam: float, p: float) -> float:
     """Quantile of Exp(lam) — ros_tools ExponentialQuantile, used for the
     Gaussian->ellipsoid chi multiplier (ellipsoid_constraints.cpp:80)."""
     return float(-np.log(1.0 - p) / lam)
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """The error function (the reference's `jax_erf`). torch.erf and
+    jax.scipy.special.erf differ in the last f32 digits."""
+    return torch.erf(x)
+
+
+def erfinv_approx(x: torch.Tensor) -> torch.Tensor:
+    """Inverse error function: rational approximation + 2 Newton steps.
+
+    Matches the reference's hand-rolled CasADi erfinv
+    (gaussian_constraints.py:104-114) so chance-constraint margins agree.
+    """
+    z = torch.sqrt(-torch.log((1.0 - x) / 2.0))
+    y = (((1.641345311 * z + 3.429567803) * z - 1.624906493) * z - 1.970840454) / (
+        (1.637067800 * z + 3.543889200) * z + 1.0
+    )
+    for _ in range(2):
+        y = y - (erf(y) - x) / (2.0 / math.sqrt(math.pi) * torch.exp(-y * y))
+    return y
+
+
+def douglas_rachford_projection(pos, obstacle_pos, anchor, radius, start_pos):
+    """One Douglas-Rachford iteration projecting `pos` out of a disc
+    (ros_tools math, used at linearized_constraints.cpp:142-145).
+
+    Numpy host-side version operating on [..., 2] arrays.
+    """
+    p = np.asarray(pos, dtype=float)
+    o = np.asarray(obstacle_pos, dtype=float)
+    diff = p - o
+    dist = np.linalg.norm(diff, axis=-1, keepdims=True)
+    dist = np.maximum(dist, 1e-9)
+    proj = o + diff / dist * max(radius, 1e-9)
+    inside = (dist < radius)[..., 0]
+    out = p.copy()
+    if np.ndim(inside) == 0:
+        return proj if inside else p
+    out[inside] = proj[inside]
+    return out
+
+
+def linspace(start: float, end: float, num: int) -> np.ndarray:
+    return np.linspace(start, end, num)
+
+
+def distance(a, b) -> float:
+    return float(np.linalg.norm(np.asarray(a, dtype=float) - np.asarray(b, dtype=float)))

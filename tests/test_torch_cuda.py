@@ -18,7 +18,17 @@ K1 runs one warp per batch element (one block each), so the cases also
 cover batches of 1, 5 and 33 elements, an element whose data holds a NaN
 beside healthy ones, warm duals accepted for some elements only, and both
 horizons (N+1 = 31 and 21).
+
+K1 with the MIRROR inside (raw Hessians in, `mirror_lm`) against its plain
+version (mirror_nvar, then solve_qp), 5e-3, at the flagship shape and at the
+three (nu, nx) no earlier OCP reached: (3, 6) the bicycle (N=30), (2, 4)
+dingo's point mass (N=30), (3, 5) rosnavigation's slack T-MPC with decomp
+rows (N=20, nh=36), in both launch modes. `rti_fused="auto"` resolves on
+for every buildable preset, and off, with a reason, for an OCP with an op
+the stage-code generator does not cover.
 """
+
+from dataclasses import replace as dataclass_replace
 
 import numpy as np
 import pytest
@@ -146,7 +156,166 @@ def flagship(device):
     first = solve_qp(qp, model.nu, model.nx, iterations=9)
     qp_next = solver._linearize(Zp + first.dz, P)
     return dict(model=model, qp=qp, qp_next=qp_next,
+                warm=(first.lam_l, first.lam_u, first.mu < 1e-2),
+                raw=_raw_qps(solver, Zp, P))
+
+
+def _raw_qps(solver, Zp, P):
+    """The QPs at Zp with their RAW Hessians, the plain cold solve (MIRROR,
+    then solve_qp), and the next QPs with its duals: what K1 gets from the
+    solver's unfused route."""
+    m = solver.ocp.model
+    kw = dict(mirror_lm=solver.lm, mirror_x_only=solver._mirror_x_only)
+    qp = solver._linearize(Zp, P, raw_hessian=True)
+    first = solve_qp(cuda_qp._mirrored(qp, m.nu, kw["mirror_lm"], kw["mirror_x_only"]), m.nu, m.nx,
+                     iterations=9)
+    qp_next = solver._linearize(Zp + first.dz, P, raw_hessian=True)
+    return dict(model=m, qp=qp, qp_next=qp_next, first=first, kw=kw,
                 warm=(first.lam_l, first.lam_u, first.mu < 1e-2))
+
+
+def _check_mirror_qp(raw, warm):
+    """K1 on raw Hessians against mirror_nvar + solve_qp: cold with
+    Mehrotra, or warm duals with a fixed sigma."""
+    m, kw = raw["model"], raw["kw"]
+    qp = raw["qp_next"] if warm else raw["qp"]
+    args = dict(iterations=4 if warm else 9, mehrotra=not warm,
+                warm_duals=raw["warm"] if warm else None)
+    ref = solve_qp(cuda_qp._mirrored(qp, m.nu, kw["mirror_lm"], kw["mirror_x_only"]), m.nu, m.nx,
+                   **args)
+    cuda_qp.reset_launch_counts()
+    out = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, **args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_qp.launch_counts["qp"] == 1 and cuda_qp.launch_counts["mirror"] == 0
+    scale = float(raw["first"].dz.abs().max())  # a warm step may be ~0 itself
+    assert float((out.dz - ref.dz).abs().max()) < 5e-3 * max(float(ref.dz.abs().max()), scale)
+    for f in ("lam_l", "lam_u", "mu"):
+        assert torch.isfinite(getattr(out, f)).all(), f
+        assert _rel(getattr(out, f), getattr(ref, f)) < 5e-3, f
+    return out
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold_mehrotra", "warm_fixed_sigma"])
+def test_qp_kernel_with_mirror_flagship_matches_plain(flagship, warm):
+    _check_mirror_qp(flagship["raw"], warm)
+
+
+def test_qp_kernel_with_mirror_full_and_x_only_agree(flagship):
+    """The probe found the flagship's u-block diagonal and decoupled: the
+    full 7 x 7 Jacobi and the x-only one then regularize alike (1e-4)."""
+    raw = flagship["raw"]
+    m = raw["model"]
+    assert raw["kw"]["mirror_x_only"]
+    a = cuda_qp.solve_qp_cuda(raw["qp"], m.nu, m.nx, iterations=9, **raw["kw"])
+    b = cuda_qp.solve_qp_cuda(raw["qp"], m.nu, m.nx, iterations=9,
+                              mirror_lm=raw["kw"]["mirror_lm"], mirror_x_only=False)
+    torch.cuda.synchronize()
+    assert _rel(a.dz, b.dz) < 1e-3
+
+
+def test_qp_kernel_with_mirror_large_batch(device, flagship):
+    """Past the resident batch the launcher keeps the QP in global memory;
+    the MIRROR runs there too, and the answers are those of the B=64 launch."""
+    raw = flagship["raw"]
+    m, qp = raw["model"], raw["qp"]
+    ext = cuda_qp.load_kernels()
+    Np1, nrows, nvar = qp.D.shape[1:]
+    resident = ext.qp_resident_blocks(ext.qp_shared_bytes(Np1 - 1, m.nu, m.nx, nrows - nvar, True, True))
+    assert B <= resident
+    copies = resident // B + 1
+
+    def tiled(x):
+        return x.repeat(copies, *([1] * (x.dim() - 1)))
+
+    big = qp._replace(**{f: tiled(getattr(qp, f)) for f in qp._fields})
+    small = cuda_qp.solve_qp_cuda(qp, m.nu, m.nx, iterations=9, **raw["kw"])
+    out = cuda_qp.solve_qp_cuda(big, m.nu, m.nx, iterations=9, **raw["kw"])
+    torch.cuda.synchronize()
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        assert _rel(getattr(out, f), tiled(getattr(small, f))) < 1e-5, f
+
+
+def test_qp_mirror_global_scratch_only_where_it_saves_a_wave(device):
+    """The regularized Hessians go to a global scratch (which the wrapper
+    then allocates) only where shared memory would cost the batch a wave of
+    blocks: on an H100, the goal shape at N=30, B=1024 (924 resident blocks
+    with the triangles, 1,056 without); never in the staged mode."""
+    ext = cuda_qp.load_kernels()
+    with_t = ext.qp_resident_blocks(ext.qp_shared_bytes(30, 2, 5, 12, False, True))
+    without = ext.qp_resident_blocks(ext.qp_shared_bytes(30, 2, 5, 12, False, False))
+    assert with_t < without
+    assert ext.qp_mirror_in_global(without, 30, 2, 5, 12)  # one wave instead of two
+    assert not ext.qp_mirror_in_global(with_t, 30, 2, 5, 12)  # one wave either way
+    assert not ext.qp_mirror_in_global(5, 30, 2, 5, 12)  # staged
+
+
+def _new_family(name):
+    """(cfg, model, modules, costmap) of a family whose (nu, nx) no earlier
+    OCP reached, at its system's horizon."""
+    if name == "bicycle":
+        cfg = default_config(N=30)
+        return (cfg, *presets.configuration_bicycle(cfg), False)
+    if name == "dingo_lmpcc":
+        return (*presets.system_dingo("lmpcc"), False)
+    return (*presets.system_rosnavigation("tmpc"), True)
+
+
+@pytest.fixture(scope="module", params=["bicycle", "dingo_lmpcc", "rosnavigation_tmpc"])
+def new_family(request, device):
+    cfg, model, modules, costmap = _new_family(request.param)
+    cfg = cfg.replace(solver=dataclass_replace(cfg.solver, qp_backend="torch", iterations=10))
+    ocp, Z0, P, x0 = presets.preset_problem(cfg, model, modules, n_pedestrians=8, seed=0,
+                                            costmap=costmap)
+    solver = SQPSolver(ocp, device=device)
+    g = torch.Generator(device=device).manual_seed(4)
+    Z0 = torch.as_tensor(Z0, dtype=torch.float32, device=device).expand(B, -1, -1).clone()
+    Z0[:, 1:, model.nu:] += 0.05 * torch.randn(Z0[:, 1:, model.nu:].shape, device=device, generator=g)
+    P = torch.as_tensor(P, dtype=torch.float32, device=device).expand(B, -1, -1)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device).expand(B, -1)
+    Zs = solver.batch_impl(Z0, P, x0, 10).Z
+    Zp = Zs + 0.01 * torch.randn(Zs.shape, device=device, generator=g)
+    return _raw_qps(solver, Zp, P)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold_mehrotra", "warm_fixed_sigma"])
+def test_qp_kernel_with_mirror_at_new_shapes(new_family, warm):
+    m = new_family["model"]
+    assert (m.nu, m.nx) in {(3, 6), (2, 4), (3, 5)}
+    _check_mirror_qp(new_family, warm)
+
+
+PRESETS = [("jackalsimulator", v) for v in ("tmpc", "basic", "no_obstacles", "lmpcc",
+                                            "curvature_aware", "tmpc_ca")] + [
+    ("jackal", v) for v in ("tmpc", "ca", "goal", "lmpcc")] + [
+    ("dingo", "tmpc"), ("dingo", "lmpcc"), ("rosnavigation", "tmpc"), ("rosnavigation", "lmpcc")]
+
+
+@pytest.mark.parametrize("name,variant", PRESETS)
+def test_rti_fused_auto_resolves_on_for_every_preset(device, name, variant):
+    cfg, model, modules = presets.select_system(name, variant)
+    solver = SQPSolver(OCP(model, modules, cfg))  # no device given: the card
+    assert solver.device.type == "cuda" and solver.qp_backend == "cuda"
+    assert solver.rti_fused and solver.rti_fused_reason == ""
+
+
+def test_rti_fused_auto_resolves_off_for_an_unsupported_op(device):
+    class Cosh(GoalModule):  # cosh: an op the stage-code generator does not cover
+        def cost(self, model, params, cfg, stage_idx):
+            return super().cost(model, params, cfg, stage_idx) + torch.cosh(model.get("v"))
+
+    cfg = default_config(N=10)
+    modules = ModuleManager()
+    base = modules.add_module(MPCBaseModule(cfg))
+    base.weigh_variable("a", "acceleration")
+    base.weigh_variable("w", "angular_velocity")
+    modules.add_module(Cosh(cfg))
+    ocp = OCP(SecondOrderUnicycleModel(), modules, cfg)
+    solver = SQPSolver(ocp, device=device)
+    assert not solver.rti_fused and solver.qp_backend == "cuda"
+    assert "cosh" in solver.rti_fused_reason and "running_cost" in solver.rti_fused_reason
+    on = cfg.replace(solver=cfg.solver.__class__(rti_fused="on"))
+    with pytest.raises(ValueError, match="cosh"):
+        SQPSolver(OCP(SecondOrderUnicycleModel(), modules, on), device=device)
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold_mehrotra", "warm_fixed_sigma"])
@@ -284,7 +453,7 @@ def test_qp_kernel_large_batch_reads_the_qp_from_global_memory(device, jackal, f
     m, qp = case["model"], case["qp"]
     ext = cuda_qp.load_kernels()
     Np1, nrows, nvar = qp.D.shape[1:]
-    staged = ext.qp_shared_bytes(Np1 - 1, m.nu, m.nx, nrows - nvar, True)
+    staged = ext.qp_shared_bytes(Np1 - 1, m.nu, m.nx, nrows - nvar, True, False)
     resident = ext.qp_resident_blocks(staged)
     assert B <= resident
     copies = resident // B + 1

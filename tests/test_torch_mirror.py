@@ -54,7 +54,7 @@ def test_mirror_eigenvalue_floor():
 @pytest.fixture(scope="module")
 def solver():
     _, ts = jackal_goal_pair()
-    return SQPSolver(OCP(ts.model, ts.modules, ts.cfg))
+    return SQPSolver(OCP(ts.model, ts.modules, ts.cfg), device="cpu")
 
 
 @pytest.mark.parametrize("x_only", [True, False])

@@ -113,7 +113,7 @@ def test_linearize(pair):
     within 1e-4 of max |H| (Jacobi here, LAPACK eigh in the JAX CPU path)."""
     Zb, Pb = _trajectories(pair)
     jsolver = JaxSQPSolver(pair["jocp"])
-    tsolver = TorchSQPSolver(pair["tocp"])
+    tsolver = TorchSQPSolver(pair["tocp"], device="cpu")
     assert tsolver._mirror_x_only == jsolver._mirror_x_only
     ref = jax.vmap(jsolver._linearize)(jnp.asarray(Zb), jnp.asarray(Pb))
     out = tsolver._linearize(torch.as_tensor(Zb), torch.as_tensor(Pb))

@@ -58,8 +58,9 @@ def test_solve_qp_matches_reference(case, warm, mehrotra, kind):
     wd = case["warm"] if warm else None
     ref = _reference(case, wd, mehrotra, kind)
     qp = case["qp_next"] if warm else case["qp"]
-    out = solve_qp(interop.qp_data(qp), model.nu, model.nx, iterations=ITER_WARM if warm else ITER,
-                   warm_duals=None if wd is None else interop.warm_duals(*wd), mehrotra=mehrotra)
+    out = solve_qp(interop.qp_data(qp, device="cpu"), model.nu, model.nx,
+                   iterations=ITER_WARM if warm else ITER, mehrotra=mehrotra,
+                   warm_duals=None if wd is None else interop.warm_duals(*wd, device="cpu"))
     assert _rel(out.dz, ref.dz) < TOL
     assert _rel(out.lam_l, ref.lam_l) < TOL
     assert _rel(out.lam_u, ref.lam_u) < TOL
@@ -81,7 +82,7 @@ def test_qp_wrapper_on_cpu_is_plain(case):
     """On CPU tensors the kernel wrapper runs the plain solve_qp and
     launches nothing."""
     model = case["model"]
-    qp = interop.qp_data(case["qp"])
+    qp = interop.qp_data(case["qp"], device="cpu")
     cuda_qp.reset_launch_counts()
     a = cuda_qp.solve_qp_cuda(qp, model.nu, model.nx, iterations=3)
     b = solve_qp(qp, model.nu, model.nx, iterations=3)

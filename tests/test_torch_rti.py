@@ -114,10 +114,36 @@ def test_generated_derivatives_match_torch_func(generated):
         assert np.abs(out[name] - r).max() <= TOL_CODEGEN * np.abs(r).max(), name
 
 
+def test_generated_new_ops_match_torch_func(tmp_path):
+    """exp, log, tan, atan, erf, abs, maximum, minimum and cat in the
+    generated code (values, gradients, Hessians on the dual numbers of
+    dual.cuh) against torch.func, away from the ties of max/min/abs."""
+    cxx = os.environ.get("CXX", "c++")
+    if shutil.which(cxx) is None or shutil.which("ninja") is None:
+        pytest.skip(f"needs a C++ compiler ({cxx}) and ninja")
+    ocp = _torch_goal_ocp()
+
+    def cost(z, p):
+        a, w, x, y, psi, v = (z[i] for i in range(6))
+        parts = torch.cat([torch.stack([torch.exp(0.3 * a), torch.log(2.0 + x * x)]),
+                           torch.stack([torch.tan(0.4 * psi), torch.atan(y * v)])])
+        soft = torch.maximum(a * x, w + p[0]) + torch.minimum(y, v * v) + torch.abs(psi - 0.1)
+        return parts.sum(dim=0) + torch.erf(0.5 * w + x) * soft + torch.erf(p[1]) * torch.exp(p[0])
+
+    ocp.running_cost = cost
+    rng = np.random.default_rng(4)
+    z = torch.as_tensor(rng.normal(0.0, 1.0, (64, ocp.nvar)), dtype=torch.float32)
+    p = torch.as_tensor(rng.normal(0.0, 1.0, (64, ocp.npar)), dtype=torch.float32)
+    out = host_evaluator(StageCode(ocp), str(tmp_path))(z.numpy(), p.numpy())
+    zd, pd = z.double(), p.double()
+    for name, ref in (("g", vmap(grad(cost))(zd, pd)), ("H", vmap(hessian(cost))(zd, pd))):
+        assert np.abs(out[name] - ref.numpy()).max() <= TOL_CODEGEN * ref.abs().max(), name
+
+
 def test_unsupported_op_raises():
     ocp = _torch_goal_ocp()
-    ocp.dynamics_fn = lambda z, p: torch.exp(z[ocp.nu:])
-    with pytest.raises(ValueError, match="exp"):
+    ocp.dynamics_fn = lambda z, p: torch.cosh(z[ocp.nu:])  # (exp, log, tan, erf, ... are covered)
+    with pytest.raises(ValueError, match="dynamics: aten op aten.cosh"):
         StageCode(ocp).generate()
 
 
@@ -126,7 +152,7 @@ def test_unsupported_op_raises():
 def batch():
     js, ts = jackal_goal_pair(n_pedestrians=6, seed=7, **SOLVER_SMALL)
     jsolver = JaxSQPSolver(JaxOCP(js.model, js.modules, js.cfg))
-    tsolver = TorchSQPSolver(TorchOCP(ts.model, ts.modules, ts.cfg))
+    tsolver = TorchSQPSolver(TorchOCP(ts.model, ts.modules, ts.cfg), device="cpu")
     P_j, P_t = parameter_blocks(js, ts, jsolver.ocp.params, tsolver.ocp.params)
     Z0 = initialize_with_state(ts.model, ts.cfg.N, ts.state)
     Zb = perturbed_warmstarts(Z0, ts.model.nu, B, seed=2)
@@ -144,13 +170,14 @@ def test_solve_batch_fused_matches_jax(batch, case):
     n = 1 if case == "one_iteration" else 4
     escalated = case == "escalated"
     args_j = (jnp.asarray(Zb), jnp.asarray(Pb), jnp.asarray(xb))
-    args_t = (interop.warm_start(Zb), interop.parameter_block(Pb), interop.xinit(xb))
+    args_t = (interop.warm_start(Zb, device="cpu"), interop.parameter_block(Pb, device="cpu"),
+              interop.xinit(xb, device="cpu"))
     warm_j = warm_t = None
     if case == "warm":
         first = jsolver._get_compiled(4, True)(*args_j)
         warm = (np.asarray(first.lam_l), np.asarray(first.lam_u), np.asarray(first.qp_mu) < 1e-2)
         warm_j = (jnp.asarray(warm[0]), jnp.asarray(warm[1]), jnp.asarray(warm[2]))
-        warm_t = interop.warm_duals(*warm)
+        warm_t = interop.warm_duals(*warm, device="cpu")
     if warm_j is None:
         res_j = jsolver._get_compiled(n, True, escalated=escalated)(*args_j)
     else:
@@ -173,7 +200,7 @@ def test_solve_batch_fused_matches_jax_interpret():
     tc = tc.replace(solver=tc.solver.__class__(**SOLVER_SMALL))
     tmodel, tmods = _goal_only(tc, SecondOrderUnicycleModel, ModuleManager, MPCBaseModule,
                                GoalModule)
-    tsolver = TorchSQPSolver(TorchOCP(tmodel, tmods, tc))
+    tsolver = TorchSQPSolver(TorchOCP(tmodel, tmods, tc), device="cpu")
     data = RealTimeData()
     data.goal = np.array([4.0, 1.0])
     data.goal_received = True
@@ -186,8 +213,9 @@ def test_solve_batch_fused_matches_jax_interpret():
     xb = np.tile(state.as_array()[None], (B, 1)).astype(np.float32)
     jsolver.interpret = True
     res_j = jsolver._solve_batch_fused(jnp.asarray(Zb), jnp.asarray(Pb), jnp.asarray(xb), 3)
-    res_t = tsolver._solve_batch_fused(interop.warm_start(Zb), interop.parameter_block(Pb),
-                                       interop.xinit(xb), 3)
+    res_t = tsolver._solve_batch_fused(interop.warm_start(Zb, device="cpu"),
+                                       interop.parameter_block(Pb, device="cpu"),
+                                       interop.xinit(xb, device="cpu"), 3)
     np.testing.assert_array_equal(res_t.exit_code.numpy(), np.asarray(res_j.exit_code))
     np.testing.assert_allclose(res_t.Z.numpy(), np.asarray(res_j.Z), atol=ATOL_Z, rtol=0)
 
@@ -197,7 +225,7 @@ def test_wrappers_on_cpu_are_plain(batch):
     versions and launch nothing; the plain linearization is the unfused
     one where the QP reads it (terminal u-block and inactive rows masked)."""
     _, tsolver, Zb, Pb, xb = batch
-    Z, P = interop.warm_start(Zb), interop.parameter_block(Pb)
+    Z, P = interop.warm_start(Zb, device="cpu"), interop.parameter_block(Pb, device="cpu")
     nu, N = tsolver.ocp.nu, tsolver.ocp.N
     kw = dict(lb_template=tsolver._lb_template, ub_template=tsolver._ub_template,
               lm=tsolver.lm, mirror_x_only=tsolver._mirror_x_only)
@@ -222,21 +250,27 @@ def test_wrappers_on_cpu_are_plain(batch):
 def _solver(**solver_cfg):
     ocp = _torch_goal_ocp()
     cfg = ocp.cfg.replace(solver=ocp.cfg.solver.__class__(**solver_cfg))
-    return TorchSQPSolver(TorchOCP(ocp.model, ocp.modules, cfg))
+    return TorchSQPSolver(TorchOCP(ocp.model, ocp.modules, cfg), device="cpu")
 
 
 def test_rti_fused_route_resolution(monkeypatch):
-    assert not _solver().rti_fused  # "auto" resolves off
-    assert not _solver(rti_fused="on").rti_fused  # a CPU device: the torch backend
+    cpu = _solver()  # "auto" on a CPU device: the torch backend, unfused
+    assert not cpu.rti_fused and "torch" in cpu.rti_fused_reason
+    assert not _solver(rti_fused="on").rti_fused
     with pytest.raises(ValueError, match="rti_fused"):
         _solver(rti_fused="yes")
-    # as if on a CUDA device (the backend check patched): "on" takes the
-    # route unless corrector-only warm QPs or SQP mode keep it unfused
+    # as if on a CUDA device (the backend check patched): "on" and "auto"
+    # take the route unless corrector-only warm QPs or SQP mode keep it
+    # unfused; "off" never does, and each says why
     monkeypatch.setattr(sqp, "resolve_qp_backend", lambda *args: "cuda")
-    assert _solver(rti_fused="on").rti_fused
-    assert not _solver(rti_fused="auto").rti_fused
-    assert not _solver(rti_fused="on", qp_warm_corrector_only=True).rti_fused
-    assert not _solver(rti_fused="on", solver_type="SQP").rti_fused
+    for setting in ("on", "auto"):
+        fused = _solver(rti_fused=setting)
+        assert fused.rti_fused and fused.rti_fused_reason == ""
+        corrector_only = _solver(rti_fused=setting, qp_warm_corrector_only=True)
+        assert not corrector_only.rti_fused and "corrector" in corrector_only.rti_fused_reason
+        assert not _solver(rti_fused=setting, solver_type="SQP").rti_fused
+    off = _solver(rti_fused="off")
+    assert not off.rti_fused and "off" in off.rti_fused_reason
 
 
 def test_auto_backend_needs_an_instantiated_qp_kernel():

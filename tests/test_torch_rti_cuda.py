@@ -208,6 +208,44 @@ def test_linearize_kernel_flagship_matches_unfused(flagship):
     test_linearize_kernel_matches_unfused(flagship)
 
 
+@pytest.fixture(scope="module", params=["bicycle", "jackal_tmpc_gaussian"])
+def new_ocp(request, device):
+    """A default-route solver (rti_fused="auto" must resolve on) for an OCP
+    with the new generated ops, and a batch of perturbed converged plans:
+    the bicycle (configuration_bicycle: tan, atan, Dual2<9>; N=30) and the
+    real Jackal's T-MPC with Gaussian chance constraints (log, exp, erf;
+    N=30, nh=24)."""
+    if request.param == "bicycle":
+        cfg = default_config(N=N)
+        model, modules = presets.configuration_bicycle(cfg)
+    else:
+        cfg, model, modules = presets.system_jackal("tmpc")
+    ocp, Z0, P, x0 = presets.preset_problem(cfg, model, modules, n_pedestrians=8, seed=0)
+    solver = SQPSolver(ocp, device=device)
+    assert solver.rti_fused and solver.rti_fused_reason == ""
+    g = torch.Generator(device=device).manual_seed(5)
+    Z0 = torch.as_tensor(Z0, dtype=torch.float32, device=device).expand(B, -1, -1).clone()
+    Z0[:, 1:, model.nu:] += 0.05 * torch.randn(Z0[:, 1:, model.nu:].shape, device=device, generator=g)
+    P = torch.as_tensor(P, dtype=torch.float32, device=device).expand(B, -1, -1)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device).expand(B, -1)
+    Zs = solver.batch_impl(Z0, P, x0, 10).Z
+    Zp = Zs + 0.01 * torch.randn(Zs.shape, device=device, generator=g)
+    Zp[:, 0, model.nu:] = x0
+    kw = dict(lb_template=solver._lb_template, ub_template=solver._ub_template,
+              num_iterations=10, warm_iters=solver.warm_qp_iters, mu0=solver.mu0,
+              sigma_fixed=solver.warm_sigma, lm=solver.lm, mirror_x_only=solver._mirror_x_only)
+    return dict(solver=solver, ocp=ocp, Z0=Zp, P=P, x0=x0, kw=kw)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_rti_kernel_new_ocps_match_plain(new_ocp, warm):
+    test_rti_kernel_matches_plain(new_ocp, warm)
+
+
+def test_linearize_kernel_new_ocps_match_unfused(new_ocp):
+    test_linearize_kernel_matches_unfused(new_ocp)
+
+
 def test_rti_wrapper_rejects_bad_input(jackal):
     s, kw = jackal["solver"], jackal["kw"]
     Z0, P = jackal["Z0"], jackal["P"]

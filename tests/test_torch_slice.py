@@ -28,7 +28,7 @@ B = 4
 def test_planner_closed_loop_matches_jax():
     js, ts = jackal_goal_pair(n_pedestrians=6, seed=7, **SOLVER_SMALL)
     jp = JaxPlanner(js.model, js.modules, js.cfg)
-    tp = TorchPlanner(ts.model, ts.modules, ts.cfg)
+    tp = TorchPlanner(ts.model, ts.modules, ts.cfg, device="cpu")
     assert tp.solver.qp_backend == "torch"
     start = ts.state.get_position()
     for cycle in range(3):
@@ -52,7 +52,7 @@ def test_planner_closed_loop_matches_jax():
 def batch():
     js, ts = jackal_goal_pair(n_pedestrians=6, seed=7, **SOLVER_SMALL)
     jsolver = JaxSQPSolver(JaxOCP(js.model, js.modules, js.cfg))
-    tsolver = TorchSQPSolver(TorchOCP(ts.model, ts.modules, ts.cfg))
+    tsolver = TorchSQPSolver(TorchOCP(ts.model, ts.modules, ts.cfg), device="cpu")
     P_j, P_t = parameter_blocks(js, ts, jsolver.ocp.params, tsolver.ocp.params)
     np.testing.assert_array_equal(P_j, P_t)
     Z0 = initialize_with_state(ts.model, ts.cfg.N, ts.state)
@@ -82,8 +82,9 @@ def _assert_same(res_t, res_j):
 def test_solve_batch_cold_matches_jax(batch):
     jsolver, tsolver, Zb, Pb, xb = batch
     res_j = jsolver.solve_batch(Zb, Pb, xb)
-    res_t = tsolver.solve_batch(interop.warm_start(Zb), interop.parameter_block(Pb),
-                                interop.xinit(xb))
+    res_t = tsolver.solve_batch(interop.warm_start(Zb, device="cpu"),
+                                interop.parameter_block(Pb, device="cpu"),
+                                interop.xinit(xb, device="cpu"))
     assert np.all(np.asarray(res_j.exit_code) == EXIT_SUCCESS)
     _assert_same(res_t, res_j)
 
@@ -106,9 +107,10 @@ def test_solve_batch_warm_escalation_matches_jax(batch):
     real_t = _spy(tsolver, "batch_impl", t_log)
     try:
         res_j = jsolver.solve_batch(Z1, Pb, xb, num_iterations=1, warm_duals=warm)
-        res_t = tsolver.solve_batch(interop.warm_start(Z1), interop.parameter_block(Pb),
-                                    interop.xinit(xb), num_iterations=1,
-                                    warm_duals=interop.warm_duals(*warm))
+        res_t = tsolver.solve_batch(interop.warm_start(Z1, device="cpu"),
+                                    interop.parameter_block(Pb, device="cpu"),
+                                    interop.xinit(xb, device="cpu"), num_iterations=1,
+                                    warm_duals=interop.warm_duals(*warm, device="cpu"))
     finally:
         jsolver._get_compiled = real_j
         tsolver.batch_impl = real_t

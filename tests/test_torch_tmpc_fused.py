@@ -39,20 +39,21 @@ def pair():
 @pytest.mark.parametrize("case", ["cold", "warm"])
 def test_fused_route_plain_matches_jax_and_unfused(pair, case):
     jsolver = pair["jsolver"]
-    tsolver = TorchSQPSolver(pair["tocp"])
+    tsolver = TorchSQPSolver(pair["tocp"], device="cpu")
     nu = pair["tocp"].nu
     Zb = perturbed_warmstarts(pair["tZ0"], nu, B, seed=3)
     Pb = np.tile(pair["tP"][None], (B, 1, 1)).astype(np.float32)
     xb = np.tile(pair["tx"][None], (B, 1)).astype(np.float32)
     args_j = (jnp.asarray(Zb), jnp.asarray(Pb), jnp.asarray(xb))
-    args_t = (interop.warm_start(Zb), interop.parameter_block(Pb), interop.xinit(xb))
+    args_t = (interop.warm_start(Zb, device="cpu"), interop.parameter_block(Pb, device="cpu"),
+              interop.xinit(xb, device="cpu"))
     n = SOLVER["iterations"]
     warm_j = warm_t = None
     if case == "warm":
         first = jsolver._get_compiled(n, True)(*args_j)
         warm = (np.asarray(first.lam_l), np.asarray(first.lam_u), np.asarray(first.qp_mu) < 1e-2)
         warm_j = tuple(jnp.asarray(w) for w in warm)
-        warm_t = interop.warm_duals(*warm)
+        warm_t = interop.warm_duals(*warm, device="cpu")
         res_j = jsolver._get_compiled(n, True, True)(*args_j, *warm_j)
     else:
         res_j = jsolver._get_compiled(n, True)(*args_j)

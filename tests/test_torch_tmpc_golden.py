@@ -25,7 +25,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 def test_tmpc_golden(name, N):
     cfg = default_config(N=N)
     model, modules = configuration_tmpc(cfg)
-    planner = Planner(model, modules, cfg)
+    planner = Planner(model, modules, cfg, device="cpu")
     state, data = corridor_scene(cfg, n_pedestrians=6, seed=7)
     planner.on_data_received(data, "reference_path")
     out = planner.solve_mpc(state, data)

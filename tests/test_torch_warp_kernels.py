@@ -134,8 +134,8 @@ def test_qp_kernel_body_matches_reference(qp_case, build_dir, warm, mehrotra):
     it = ITER_WARM if warm else ITER
     ref = jax_qp_reference(qp_case, warm, mehrotra, it)
     out = cuda_qp.solve_qp_host(
-        interop.qp_data(qp), nu, nx, it, build_dir, mehrotra=mehrotra,
-        warm_duals=interop.warm_duals(*qp_case["warm"]) if warm else None)
+        interop.qp_data(qp, device="cpu"), nu, nx, it, build_dir, mehrotra=mehrotra,
+        warm_duals=interop.warm_duals(*qp_case["warm"], device="cpu") if warm else None)
     for f in ("dz", "lam_l", "lam_u", "mu"):
         assert getattr(out, f).shape == np.asarray(getattr(ref, f)).shape, f
         assert _rel(getattr(out, f), getattr(ref, f)) < TOL, f
@@ -146,7 +146,7 @@ def test_qp_kernel_body_freezes_a_nan_element_alone(qp_case, build_dir):
     start (dz = 0, the cold duals), exactly as the plain version; the
     other elements' answers do not change."""
     model = qp_case["model"]
-    qp = interop.qp_data(qp_case["qp"])
+    qp = interop.qp_data(qp_case["qp"], device="cpu")
     g = qp.g.clone()
     g[1, 3, 2] = float("nan")
     bad = qp._replace(g=g)
@@ -166,7 +166,7 @@ def test_qp_kernel_body_freezes_a_nan_element_alone(qp_case, build_dir):
 def test_qp_wrapper_keeps_element_major_layout(qp_case):
     """[B, ...] in, [B, ...] contiguous out, on the CPU the plain values."""
     model = qp_case["model"]
-    qp = interop.qp_data(qp_case["qp"])
+    qp = interop.qp_data(qp_case["qp"], device="cpu")
     out = cuda_qp.solve_qp_cuda(qp, model.nu, model.nx, iterations=3)
     ref = solve_qp(qp, model.nu, model.nx, iterations=3)
     nrows = model.nvar + qp_case["nh"]
@@ -184,7 +184,7 @@ def test_qp_wrapper_keeps_element_major_layout(qp_case):
 def rti_case(build_dir):
     js, ts = jackal_goal_pair(n_pedestrians=6, seed=7, **SOLVER_SMALL)
     jsolver = JaxSQPSolver(JaxOCP(js.model, js.modules, js.cfg))
-    tsolver = TorchSQPSolver(TorchOCP(ts.model, ts.modules, ts.cfg))
+    tsolver = TorchSQPSolver(TorchOCP(ts.model, ts.modules, ts.cfg), device="cpu")
     _, P_t = parameter_blocks(js, ts, jsolver.ocp.params, tsolver.ocp.params)
     Zb = perturbed_warmstarts(initialize_with_state(ts.model, ts.cfg.N, ts.state), ts.model.nu, B,
                               seed=2)
@@ -204,12 +204,13 @@ def test_rti_kernel_body_matches_jax(rti_case):
     s = c["tsolver"]
     res_j = c["jsolver"]._get_compiled(4, True)(jnp.asarray(c["Zb"]), jnp.asarray(c["Pb"]),
                                                jnp.asarray(c["xb"]))
-    out = c["host"].solve(interop.warm_start(c["Zb"]), interop.parameter_block(c["Pb"]),
+    out = c["host"].solve(interop.warm_start(c["Zb"], device="cpu"),
+                          interop.parameter_block(c["Pb"], device="cpu"),
                           num_iterations=4, it0=s.qp_iterations, warm_iters=s.warm_qp_iters,
                           mu0=s.mu0, sigma_fixed=s.warm_sigma, **c["kw"])
     assert out.Z.shape == c["Zb"].shape and out.Z.is_contiguous()
     np.testing.assert_allclose(out.Z.numpy(), np.asarray(res_j.Z), atol=TOL, rtol=0)
-    codes = s._exit_codes(out.Z, interop.parameter_block(c["Pb"]))[0]
+    codes = s._exit_codes(out.Z, interop.parameter_block(c["Pb"], device="cpu"))[0]
     np.testing.assert_array_equal(codes.numpy(), np.asarray(res_j.exit_code))
 
 
@@ -219,7 +220,7 @@ def test_rti_kernel_body_matches_jax(rti_case):
 def test_rti_kernel_body_matches_plain_with_warm_duals(rti_case, ok, staged):
     c = rti_case
     s, ocp = c["tsolver"], c["tsolver"].ocp
-    Z, P = interop.warm_start(c["Zb"]), interop.parameter_block(c["Pb"])
+    Z, P = interop.warm_start(c["Zb"], device="cpu"), interop.parameter_block(c["Pb"], device="cpu")
     kw = dict(c["kw"], num_iterations=3, warm_iters=s.warm_qp_iters, mu0=s.mu0,
               sigma_fixed=s.warm_sigma)
     first = solve_rti_torch(Z, P, ocp, it0=s.qp_iterations, **kw)
@@ -234,7 +235,7 @@ def test_rti_kernel_body_matches_plain_with_warm_duals(rti_case, ok, staged):
 def test_linearize_kernel_body_matches_plain(rti_case):
     c = rti_case
     s = c["tsolver"]
-    Z, P = interop.warm_start(c["Zb"]), interop.parameter_block(c["Pb"])
+    Z, P = interop.warm_start(c["Zb"], device="cpu"), interop.parameter_block(c["Pb"], device="cpu")
     out = c["host"].linearize(Z, P, **c["kw"])
     ref = linearize_torch(s.ocp, Z, P, s._lb_template, s._ub_template, s.lm, s._mirror_x_only)
     for f in ("H", "g", "A", "B", "c", "D"):
@@ -269,7 +270,7 @@ def test_rti_work_adds_up(rti_case):
 def test_rti_wrappers_keep_element_major_layout(rti_case):
     c = rti_case
     s = c["tsolver"]
-    Z, P = interop.warm_start(c["Zb"]), interop.parameter_block(c["Pb"])
+    Z, P = interop.warm_start(c["Zb"], device="cpu"), interop.parameter_block(c["Pb"], device="cpu")
     res = cuda_rti.solve_rti_cuda(Z, P, s._stage_code, num_iterations=2, it0=10, warm_iters=4,
                                   **c["kw"])
     assert res.Z.shape == Z.shape and res.lam_l.shape == (B, 11, 19) and res.mu.shape == (B,)

@@ -15,7 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
+import mpc_planner_tpu.models as jax_models
+import mpc_planner_tpu.modules as jax_modules
 import mpc_planner_tpu.presets as jax_presets
+import mpc_planner_tpu_torch.models as torch_models
+import mpc_planner_tpu_torch.modules as torch_modules
 import mpc_planner_tpu_torch.presets as torch_presets
 from mpc_planner_tpu.parameters import ParameterBlock as JaxParameterBlock
 from mpc_planner_tpu.planner import Planner as JaxPlanner
@@ -25,6 +29,7 @@ from mpc_planner_tpu.utils.config import default_config as jax_default_config
 from mpc_planner_tpu.types import ModuleData as JaxModuleData
 from mpc_planner_tpu_torch.parameters import ParameterBlock as TorchParameterBlock
 from mpc_planner_tpu_torch.planner import Planner as TorchPlanner
+from mpc_planner_tpu_torch.presets import two_wall_costmap
 from mpc_planner_tpu_torch.solver.ocp import OCP as TorchOCP
 from mpc_planner_tpu_torch.solver.warmstart import initialize_with_state as torch_initialize_with_state
 from mpc_planner_tpu_torch.types import ModuleData as TorchModuleData
@@ -86,7 +91,7 @@ def place_near_pedestrian(state, data, gap: float, speed: float):
     data.ego_position = state.get_position()
 
 
-def jax_qp_case(name: str, B: int = 4, iterations: int = 8):
+def jax_qp_case(name: str, B: int = 4, iterations: int = 8, raw_only: bool = False):
     """QPs built by the JAX solver for the QP tests of both the plain
     version and the kernel body: `name` "goal" (goal tracking on the 4-state
     unicycle, nh=0) or "jackal" (system_jackal("goal") with the robot 2 m
@@ -94,7 +99,11 @@ def jax_qp_case(name: str, B: int = 4, iterations: int = 8):
     unique; some placements make an obstacle row and a box row active
     together, where no two solvers agree on the duals). B perturbed warm
     starts; the SQP loop's next QPs (relinearized at Z + dz) with the first
-    QPs' duals, element 2's rejected (ok=False: it starts cold)."""
+    QPs' duals, element 2's rejected (ok=False: it starts cold). `qp_raw`
+    and `qp_next_raw` are the same QPs before the MIRROR. Any other `name` is
+    a key of FAMILIES (N=8, 3 pedestrians, after one host pass): the
+    (nu, nx) the bicycle, the point mass and the slack model bring.
+    `raw_only`: only `qp_raw` (one traced linearization instead of four)."""
     import jax
     import jax.numpy as jnp
 
@@ -117,25 +126,68 @@ def jax_qp_case(name: str, B: int = 4, iterations: int = 8):
         data.goal = np.array([4.0, 1.0])
         data.goal_received = True
         state = State(model)
-    else:
+    elif name == "jackal":
         js, _ = jackal_goal_pair(n_pedestrians=6, seed=3)
         place_near_pedestrian(js.state, js.data, gap=2.0, speed=1.0)
         model, cfg, mgr, data, state = js.model, js.cfg, js.modules, js.data, js.state
-    ocp = JaxOCP(model, mgr, cfg)
+    if name in ("goal", "jackal"):
+        ocp = JaxOCP(model, mgr, cfg)
+        pblock = JaxParameterBlock(ocp.params, cfg.N + 1)
+        mgr.set_parameters_all(data, JaxModuleData(), pblock)
+        pblock.data[cfg.N] = pblock.data[cfg.N - 1]
+        Z0, P0 = jax_initialize_with_state(model, cfg.N, state), pblock.data
+    else:
+        kwargs, edit = FAMILIES[name]
+        js, _ = system_pair(N=8, n_pedestrians=3, seed=3, **kwargs)
+        if edit is not None:
+            edit(js)
+        hp = side_host_pass("jax", js, speed=1.0)
+        model, ocp, Z0, P0 = js.model, hp["ocp"], hp["Z0"], hp["P"]
     solver = SQPSolver(ocp)
-    pblock = JaxParameterBlock(ocp.params, cfg.N + 1)
-    mgr.set_parameters_all(data, JaxModuleData(), pblock)
-    pblock.data[cfg.N] = pblock.data[cfg.N - 1]
-    Zb = perturbed_warmstarts(jax_initialize_with_state(model, cfg.N, state), model.nu, B)
-    Pb = np.tile(pblock.data[None], (B, 1, 1)).astype(np.float32)
+    Zb = perturbed_warmstarts(Z0, model.nu, B)
+    Pb = np.tile(P0[None], (B, 1, 1)).astype(np.float32)
+    raw = jax.vmap(lambda Z, P: solver._linearize(Z, P, mirror=False))
+    if raw_only:
+        return dict(name=name, model=model, nh=ocp.nh, qp_raw=raw(jnp.asarray(Zb), jnp.asarray(Pb)),
+                    lm=float(solver.lm), x_only=bool(solver._mirror_x_only))
     linearize = jax.vmap(solver._linearize)
     qp = linearize(jnp.asarray(Zb), jnp.asarray(Pb))
     with jax.default_matmul_precision("highest"):
         first = jax.vmap(lambda d: jax_solve_qp(d, model.nu, model.nx, iterations=iterations))(qp)
     qp_next = linearize(jnp.asarray(Zb) + first.dz, jnp.asarray(Pb))
     ok = np.array([True, True, False, True])
+    # `raw`: the same QPs with their RAW Hessians, for a QP kernel that runs the
+    # MIRROR itself; lm and whether only the x-block is eigendecomposed
     return dict(name=name, model=model, nh=ocp.nh, qp=qp, qp_next=qp_next,
-                warm=(np.asarray(first.lam_l), np.asarray(first.lam_u), ok))
+                warm=(np.asarray(first.lam_l), np.asarray(first.lam_u), ok),
+                qp_raw=raw(jnp.asarray(Zb), jnp.asarray(Pb)),
+                qp_next_raw=raw(jnp.asarray(Zb) + first.dz, jnp.asarray(Pb)),
+                lm=float(solver.lm), x_only=bool(solver._mirror_x_only))
+
+
+def qp_solutions_agree(out, ref, tol, dz_scale=0.0):
+    """dz, the duals and mu of two QP solutions within `tol` of max |ref|.
+    `dz_scale`: the size dz is measured against where the step itself is ~0
+    (a QP relinearized at the solution of a linear-quadratic OCP)."""
+    for f in ("dz", "lam_l", "lam_u", "mu"):
+        o, r = np.asarray(getattr(out, f)), np.asarray(getattr(ref, f))
+        assert o.shape == r.shape, f
+        scale = max(np.abs(r).max(), dz_scale if f == "dz" else 0.0) + 1e-9
+        assert np.abs(o - r).max() / scale < tol, f
+
+
+def host_build_dir(tmp_path_factory, name: str) -> str:
+    """A directory for a host build of a kernel's body; skips the test
+    without a C++ compiler and ninja."""
+    import os
+    import shutil
+
+    import pytest
+
+    cxx = os.environ.get("CXX", "c++")
+    if shutil.which(cxx) is None or shutil.which("ninja") is None:
+        pytest.skip(f"needs a C++ compiler ({cxx}) and ninja")
+    return str(tmp_path_factory.mktemp(name))
 
 
 def jax_qp_reference(case, warm: bool, mehrotra: bool, iterations: int):
@@ -197,6 +249,69 @@ def host_pass(pkg: str, cfg, configuration: str = "configuration_tmpc", n_pedest
                 P=pblock.data, Z0=Z0)
 
 
+def system_pair(name: str = None, variant: str = None, N: int = N_SMALL, n_pedestrians: int = 3,
+                seed: int = 3, solver=None, costmap: bool = False, build=None, **cfg_overrides):
+    """A system preset (`select_system(name, variant)`) or a configuration
+    (`build(presets, cfg) -> (model, modules)`) built by both packages with
+    the small solver settings, each with the same corridor scene (and the
+    same synthetic costmap)."""
+    solver = SOLVER_SMALL if solver is None else solver
+    sides = []
+    for presets, default in ((jax_presets, jax_default_config), (torch_presets, torch_default_config)):
+        if build is None:
+            cfg, _, _ = presets.select_system(name, variant, N=N, **cfg_overrides)
+            cfg, model, modules = presets.select_system(
+                name, variant, N=N, solver=dataclasses.replace(cfg.solver, **solver), **cfg_overrides)
+        else:
+            cfg = default(N=N, **cfg_overrides)
+            cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, **solver))
+            model, modules = build(presets, cfg)
+        state, data = presets.corridor_scene(cfg, n_pedestrians=n_pedestrians, seed=seed)
+        if costmap:
+            data.costmap, data.costmap_meta = two_wall_costmap(seed)
+        sides.append(Side(cfg, model, modules, state, data))
+    return sides[0], sides[1]
+
+
+def side_host_pass(pkg: str, side: Side, speed: float = 1.2):
+    """One host pass of a built Side in package `pkg` ("jax" or "torch"):
+    on_data_received, update_all around the state-held warm start, and the
+    parameter fill with its terminal row. Returns a dict (P: the block)."""
+    Block, MD, init, OCP = ((JaxParameterBlock, JaxModuleData, jax_initialize_with_state, JaxOCP)
+                            if pkg == "jax" else
+                            (TorchParameterBlock, TorchModuleData, torch_initialize_with_state,
+                             TorchOCP))
+    model, modules, cfg = side.model, side.modules, side.cfg
+    ocp = OCP(model, modules, cfg)
+    side.state.set("v", speed)
+    modules.on_data_received(side.data, "reference_path")
+    Z0 = init(model, cfg.N, side.state)
+    md = MD()
+    md.warmstart = Z0
+    md.warmstart_xy = Z0[:, [model.index("x"), model.index("y")]]
+    for attr, name in (("warmstart_psi", "psi"), ("warmstart_spline", "spline")):
+        setattr(md, attr, Z0[:, model.index(name)] if name in model.states else np.zeros(cfg.N + 1))
+    modules.update_all(side.state, side.data, md)
+    pblock = Block(ocp.params, cfg.N + 1)
+    modules.set_parameters_all(side.data, md, pblock)
+    pblock.data[cfg.N] = pblock.data[cfg.N - 1]
+    xinit = np.array([side.state.get(n) for n in model.states])
+    return dict(ocp=ocp, md=md, P=pblock.data, Z0=Z0, xinit=xinit)
+
+
+def planner_pair(jax_side: Side, torch_side: Side):
+    """(JAX planner, port planner on the CPU) of two built Sides, the
+    reference path received; as dicts like tmpc_planner_pair's."""
+    out = []
+    for make, side, kw in ((JaxPlanner, jax_side, {}), (TorchPlanner, torch_side, {"device": "cpu"})):
+        planner = make(side.model, side.modules, side.cfg, **kw)
+        planner.on_data_received(side.data, "reference_path")
+        module = side.modules.get("GuidanceConstraints") if any(
+            m.module_name == "GuidanceConstraints" for m in side.modules) else None
+        out.append(dict(planner=planner, module=module, state=side.state, data=side.data, steps=[]))
+    return out[0], out[1]
+
+
 def tmpc_planner_pair(N: int = N_SMALL, solver=None):
     """configuration_tmpc planners of both packages on corridor_scene(6
     pedestrians, seed 7), each recording its device steps in `steps`."""
@@ -207,7 +322,7 @@ def tmpc_planner_pair(N: int = N_SMALL, solver=None):
     out = []
     for P, make, cfg in ((jax_presets, JaxPlanner, jc), (torch_presets, TorchPlanner, tc)):
         model, modules = P.configuration_tmpc(cfg)
-        planner = make(model, modules, cfg)
+        planner = make(model, modules, cfg, **({"device": "cpu"} if make is TorchPlanner else {}))
         state, data = P.corridor_scene(cfg, n_pedestrians=6, seed=7)
         planner.on_data_received(data, "reference_path")
         out.append(dict(planner=planner, module=modules.get("GuidanceConstraints"), state=state,
@@ -279,3 +394,191 @@ def tmpc_cycle(jax_side, torch_side, atol: float = 5e-3):
     np.testing.assert_allclose(torch_side["module"]._last_batch_Z.numpy(),
                                np.asarray(jax_side["module"]._last_batch_Z), atol=atol, rtol=0)
     return outs[1]
+
+
+# -- the OCP families of the remaining modules and models -----------------------
+def _with(module_of):
+    """A `build` for system_pair: configuration_no_obstacles plus the
+    constraint modules `module_of(modules package, cfg)` returns."""
+    def build(presets, cfg):
+        model, modules = presets.configuration_no_obstacles(cfg)
+        for m in module_of(jax_modules if presets is jax_presets else torch_modules, cfg):
+            modules.add_module(m)
+        return model, modules
+    return build
+
+
+def _road_bounds(side: Side):
+    xs = np.asarray(side.data.reference_path["x"], float)
+    side.data.left_bound = np.stack([xs, 2.0 + 0.3 * np.sin(xs / 4.0)], axis=-1)
+    side.data.right_bound = np.stack([xs, -2.5 + 0.2 * np.cos(xs / 5.0)], axis=-1)
+
+
+def _curved_path(side: Side):
+    xs = np.asarray(side.data.reference_path["x"], float)
+    side.data.reference_path = {"x": xs, "y": 0.8 * np.sin(xs / 5.0)}
+
+
+# name -> (system_pair arguments, an edit of each side's scene or None)
+FAMILIES = {
+    "cc": (dict(build=_with(lambda M, cfg: [M.GaussianConstraintModule(cfg)])), None),
+    "linearized": (dict(build=_with(lambda M, cfg: [M.LinearizedConstraintModule(cfg)])), None),
+    "linearized_topology": (dict(build=_with(
+        lambda M, cfg: [M.LinearizedConstraintModule(cfg, use_guidance=True)])), None),
+    "road": (dict(build=_with(lambda M, cfg: [M.ContouringConstraintModule(cfg)])), _road_bounds),
+    "rosnavigation_lmpcc": (dict(name="rosnavigation", variant="lmpcc", costmap=True), None),
+    "ellipsoid": (dict(name="jackalsimulator", variant="basic"), None),
+    "jackal_tmpc": (dict(name="jackal", variant="tmpc"), None),
+    "curvature_aware": (dict(name="jackalsimulator", variant="curvature_aware"), None),
+    "bicycle": (dict(build=lambda presets, cfg: presets.configuration_bicycle(cfg)), None),
+    "bicycle_ca": (dict(build=lambda presets, cfg: presets.configuration_bicycle(cfg, True)),
+                   _curved_path),
+    "dingo_lmpcc": (dict(name="dingo", variant="lmpcc"), None),
+    "rosnavigation_tmpc": (dict(name="rosnavigation", variant="tmpc", costmap=True), None),
+    # the rest of the presets and the KKT ladder's rungs (slow-marked tests)
+    "tmpc_ca": (dict(name="jackalsimulator", variant="tmpc_ca"), None),
+    "jackal_ca": (dict(name="jackal", variant="ca"), None),
+    "dingo_tmpc": (dict(name="dingo", variant="tmpc"), None),
+    "jackalsimulator_lmpcc": (dict(name="jackalsimulator", variant="lmpcc"), None),
+    "jackal_lmpcc": (dict(name="jackal", variant="lmpcc"), None),
+    "no_obstacles": (dict(name="jackalsimulator", variant="no_obstacles"), None),
+    "tmpc": (dict(name="jackalsimulator", variant="tmpc"), None),
+    "cc_static": (dict(build=_with(lambda M, cfg: [M.GaussianConstraintModule(cfg),
+                                                    M.LinearizedConstraintModule(cfg)])), None),
+}
+
+
+def family_case(name: str, N: int = 8, n_points: int = 8):
+    """Both packages' build of family `name`, one host pass each on the
+    same scene, and seeded (z, p) points: z normal with the spline state on
+    the path and two standing robots; p = stage rows of the port's block
+    with small noise (risks, chi and radii stay positive)."""
+    kwargs, edit = FAMILIES[name]
+    js, ts = system_pair(N=N, n_pedestrians=3, seed=3, **kwargs)
+    for side in (js, ts):
+        if edit is not None:
+            edit(side)
+        place_near_pedestrian(side.state, side.data, gap=2.0, speed=1.0)
+    jp, tp = side_host_pass("jax", js, speed=1.0), side_host_pass("torch", ts, speed=1.0)
+    rng = np.random.default_rng(0)
+    model, ocp = ts.model, tp["ocp"]
+    z = rng.normal(0.0, 1.0, (n_points, ocp.nvar))
+    if "spline" in model.states:
+        z[:, model.index("spline")] = rng.uniform(0.0, 10.0, n_points)
+    if "v" in model.states:
+        z[:2, model.index("v")] = 0.0
+    if "delta" in model.states:
+        z[:, model.index("delta")] *= 0.3  # within the steering range
+    p = tp["P"][rng.integers(1, N, n_points)] + rng.normal(0.0, 0.005, (n_points, ocp.npar))
+    return dict(name=name, js=js, ts=ts, jp=jp, tp=tp, jocp=jp["ocp"], tocp=ocp,
+                z=z.astype(np.float32), p=p.astype(np.float32))
+
+
+def close(out, ref, rtol, what):
+    """max |out - ref| <= rtol * max |ref|, shapes equal, out finite."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert out.shape == ref.shape, what
+    assert np.all(np.isfinite(out)), what
+    err = np.abs(out - ref).max()
+    assert err <= rtol * max(np.abs(ref).max(), 1e-6), (what, err, np.abs(ref).max())
+
+
+def check_blocks_equal(case):
+    """Registries, bounds and the host halves: the same [N+1, npar] block,
+    warm start and xinit, bit for bit."""
+    from mpc_planner_tpu_torch import interop
+
+    jocp, tocp = case["jocp"], case["tocp"]
+    interop.check_same_registry(jocp.params, tocp.params)
+    assert jocp.save_maps() == tocp.save_maps()
+    np.testing.assert_array_equal(jocp.lh, tocp.lh)
+    np.testing.assert_array_equal(jocp.uh, tocp.uh)
+    for key in ("P", "Z0", "xinit"):
+        np.testing.assert_array_equal(case["tp"][key], case["jp"][key])
+
+
+def check_stage_function(case, fn: str, rtol_value: float, rtol_deriv: float):
+    """One stage function of the OCP (running_cost, terminal_cost,
+    constraint_fn, dynamics_fn) against the JAX package's at the case's
+    points: value, and gradient + Hessian (costs) or Jacobian."""
+    import jax
+    import jax.numpy as jnp
+    from torch.func import grad, hessian, jacfwd, vmap
+
+    zj, pj = jnp.asarray(case["z"]), jnp.asarray(case["p"])
+    zt, pt = torch.as_tensor(case["z"]), torch.as_tensor(case["p"])
+    jf, tf = getattr(case["jocp"], fn), getattr(case["tocp"], fn)
+    close(vmap(tf)(zt, pt).numpy(), jax.vmap(jf)(zj, pj), rtol_value, fn)
+    if fn.endswith("cost"):
+        close(vmap(grad(tf))(zt, pt).numpy(), jax.vmap(jax.grad(jf))(zj, pj), rtol_deriv, fn)
+        close(vmap(hessian(tf))(zt, pt).numpy(), jax.vmap(jax.hessian(jf))(zj, pj), rtol_deriv, fn)
+    else:
+        close(vmap(jacfwd(tf))(zt, pt).numpy(), jax.vmap(jax.jacfwd(jf))(zj, pj), rtol_deriv, fn)
+
+
+def check_generated_code(case, build_dir: str, rtol: float):
+    """The K3 stage code generated for the OCP, built with the host
+    compiler, against torch.func in float64 at the same float32 points
+    (`rtol` of max |ref| for every output)."""
+    import os
+    import shutil
+
+    import pytest
+    from torch.func import grad, hessian, jacfwd, vmap
+
+    from mpc_planner_tpu_torch.ops.stage_codegen import StageCode, host_evaluator
+
+    cxx = os.environ.get("CXX", "c++")
+    if shutil.which(cxx) is None or shutil.which("ninja") is None:
+        pytest.skip(f"needs a C++ compiler ({cxx}) and ninja")
+    ocp = case["tocp"]
+    out = host_evaluator(StageCode(ocp), build_dir)(case["z"], case["p"])
+    z, p = torch.as_tensor(case["z"]).double(), torch.as_tensor(case["p"]).double()
+    ref = dict(f=vmap(ocp.dynamics_fn)(z, p), Jf=vmap(jacfwd(ocp.dynamics_fn))(z, p),
+               g=vmap(grad(ocp.running_cost))(z, p), H=vmap(hessian(ocp.running_cost))(z, p),
+               gT=vmap(grad(ocp.terminal_cost))(z, p), HT=vmap(hessian(ocp.terminal_cost))(z, p),
+               h=vmap(ocp.constraint_fn)(z, p), Jh=vmap(jacfwd(ocp.constraint_fn))(z, p))
+    for name, r in ref.items():
+        close(out[name], r.numpy(), rtol, name)
+
+
+def family_planner_pair(name: str, N: int = N_SMALL, n_pedestrians: int = 6, seed: int = 7,
+                        near_pedestrian: bool = True):
+    """Planners of both packages for family `name` (FAMILIES) on the same
+    corridor scene (tmpc_planner_pair's): a contouring robot moving at 1 m/s
+    behind a pedestrian (`near_pedestrian`; else standing at the origin, the
+    KKT ladder's start), a goal-tracking one at the origin with its goal 4 m
+    ahead."""
+    kwargs, edit = FAMILIES[name]
+    js, ts = system_pair(N=N, n_pedestrians=n_pedestrians, seed=seed, **kwargs)
+    for side in (js, ts):
+        if edit is not None:
+            edit(side)
+        if near_pedestrian and "spline" in side.model.states:
+            # 3 m behind the first pedestrian: the obstacle rows are active and
+            # the guidance planners' plans differ (no tie for the selection)
+            place_near_pedestrian(side.state, side.data, gap=3.0, speed=1.0)
+            side.state.set("spline", side.state.get("x"))
+        side.data.goal = side.state.get_position() + np.array([4.0, 0.5])
+        side.data.goal_received = True
+    return planner_pair(js, ts)
+
+
+def planner_cycle(jax_side, torch_side, atol: float = 5e-3):
+    """One solve_mpc in both packages: the same outcome and the same plan
+    within `atol` (for a guidance planner also the selection record and the
+    batch Z, tmpc_cycle). Returns the port's output."""
+    if torch_side["module"] is not None and "spline" in torch_side["planner"].model.states:
+        return tmpc_cycle(jax_side, torch_side, atol)  # (without a path the guidance stays idle)
+    outs = [s["planner"].solve_mpc(s["state"], s["data"]) for s in (jax_side, torch_side)]
+    assert outs[1].success == outs[0].success
+    np.testing.assert_allclose(torch_side["planner"]._Z, jax_side["planner"]._Z, atol=atol, rtol=0)
+    return outs[1]
+
+
+def advance(side):
+    """Move a side's robot to stage 1 of its plan (both packages alike)."""
+    planner, state = side["planner"], side["state"]
+    for name in planner.model.states:
+        state.set(name, planner.get_solution(1, name))
+    side["data"].ego_position = state.get_position()
