@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch + CUDA port (mpc_planner_tpu_torch) on one
 NVIDIA GPU: builds the hand-written Hopper kernels from the checkout,
 holds each against its plain torch version, drives the planner's paths
-(goal tracking, the T-MPC++ flagship, the real Jackal's Gaussian T-MPC and
-one cycle of the bicycle, the point mass and rosnavigation's slack T-MPC),
-and prints one JSON result line.
+(goal tracking, the T-MPC++ flagship, the real Jackal's Gaussian T-MPC,
+one cycle of the bicycle, the point mass and rosnavigation's slack T-MPC,
+and SH-MPC through the closed-loop simulator), and prints one JSON result
+line.
 
     python3 chip_smoke.py
 
@@ -20,8 +21,9 @@ result then):
   2. build the kernels (torch.utils.cpp_extension.load, sm_90a), every
      library in parallel: K1 + K2, K4, and K3 (from the stage code
      generated for each OCP) for system_jackal("goal"), the flagship OCP,
-     system_jackal("tmpc") (Gaussian), the bicycle, dingo's point mass and
-     rosnavigation's T-MPC; the build times are printed;
+     system_jackal("tmpc") (Gaussian), the bicycle, dingo's point mass,
+     rosnavigation's T-MPC and the three SH-MPC OCPs; the build times are
+     printed;
   3. K2 MIRROR kernel vs plain on seeded symmetric [B*(N+1), n, n]
      stacks, n = 5 and 7 (max |d| / max |H| < 1e-5);
   4. K1 QP kernel vs plain on QPs of system_jackal("goal") at B=1024,
@@ -32,13 +34,13 @@ result then):
      beforehand; timed: K1 with the MIRROR inside, the two-step sequence it
      replaces (K2, then K1), K1 alone, plain;
   5. Planner.solve_mpc closed loop on the unfused route (rti_fused="off"),
-     10 cycles on corridor_scene(12 pedestrians), state advanced by the
+     6 cycles on corridor_scene(12 pedestrians), state advanced by the
      port's dynamics and the pedestrians by their constant velocities;
      every cycle must succeed and the robot must approach the goal; cycle
      1 matches the same cycle on qp_backend="torch" within 5e-3. K1
      launches, K2 and K3 do not (K1's launch count is taken here);
   6. SQPSolver.solve_batch at B=1024, 10 RTI iterations: one cold solve,
-     then 3 chained warm cycles, for "cuda" (unfused) and for "torch";
+     then chained warm cycles, 3 for "cuda" (unfused) and 1 for "torch";
   7. K3's linearization alone (linearize_cuda) vs the unfused
      SQPSolver._linearize on phase 4's iterates (terminal u-block masked,
      bounds on active rows): max |d| / max |ref| < 1e-4 for each of H, g,
@@ -71,7 +73,7 @@ result then):
      cold and warm (as phase 8: Z < 5e-3, exit codes differ in <= 1%);
      timed;
  15. the flagship planner (system_jackalsimulator("tmpc"): N=30, B=5
-     planners) closed loop on corridor_scene(12 pedestrians): 10 cycles on
+     planners) closed loop on corridor_scene(12 pedestrians): 6 cycles on
      the unfused route (rti_fused="off": K1 only) and 20 on the default,
      fused route (K3 only): every cycle succeeds, the launch counts show
      the right kernels, cycle 1's Z matches the torch backend on the card
@@ -89,7 +91,7 @@ result then):
      pedestrians with Gaussian predictions): K1 (MIRROR inside) and K3
      against their plain versions at B=5 (as phases 13, 14), then 20 cycles
      through Planner.solve_mpc with no device and no route given (the card,
-     the fused route) and 20 with rti_fused="off": every cycle succeeds,
+     the fused route) and 6 with rti_fused="off": every cycle succeeds,
      the launch counts show the right kernels, cycle 1 matches the torch
      backend on the card within 5e-3;
  18. K1 (MIRROR inside) and K3 against their plain versions at B=1024 on the
@@ -98,7 +100,28 @@ result then):
      N=30); one planner cycle of each through solve_mpc on each route;
  19. the same for system_rosnavigation("tmpc") (slack model nu=3, nx=5,
      guidance + ellipsoid + decomp rows: nh=36, N=20) with a synthetic
-     two-wall costmap made from the seed.
+     two-wall costmap made from the seed;
+ 20. cell F, SH-MPC: system_jackalsimulator("safe_horizon") (slack input,
+     nu=3, nx=5, nh=24, N=30, 4 scenario solvers x 657 samples sized from
+     the risk, 12 pedestrians with Gaussian predictions). Cycle 1's device
+     step on the default route against the same step on qp_backend="torch"
+     on the card (one CUDA generator, the same draws): P bit-equal, support
+     counts and pruning flags equal, certificates within 1e-5, the winner's
+     Z within 5e-3; cycle 2 from identical inputs, where the scenario rows
+     bind: P bit-equal, the rest printed beside K3's plain version (not
+     checked); K1 (MIRROR inside) and K3 against their plain versions at
+     B=4 on cycle 1's P (as phases 13, 14; exit codes equal); a third cycle
+     under torch.profiler; ClosedLoopSimulator with the scene's pedestrians,
+     20 steps with no device and no route given and 2 with
+     rti_fused="off": no collision, forward progress, K3 only / K1 only,
+     the cycle times, the share of cycles with a valid certificate and the
+     median certificate; then two cycles at 1024 scenario solvers (778
+     samples each): each device step's time, the solve's share, feasible
+     count, peak device memory, and a third cycle under torch.profiler;
+ 21. the same agreement for system_jackalsimulator("safe_horizon_hard")
+     (nu=2) and system_rosnavigation("safe_horizon") (decomp rows after the
+     scenario rows: nh=36, N=20, phase 19's costmap), and one planner cycle
+     of each on each route.
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work (ops/cuda_qp.py::bound_ms over the operation
 and byte counts of qp_work, mirror_work, rti_work and probe_work), and the
@@ -111,6 +134,7 @@ The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -126,11 +150,12 @@ RTI_ITERATIONS = 10
 WARM_CYCLES = 8
 HOST_BOUND_WARM_CYCLES = 3  # of the unfused batches (phases 6, 16): seconds a cycle
 PLANNER_CYCLES = 20
-UNFUSED_CYCLES = 10  # of the earlier unfused loops (phases 5, 15): ~1-3 s a cycle on the host
+UNFUSED_CYCLES = 6  # of the unfused planner loops (phases 5, 15, 17): ~2-4 s a cycle on the host
 SEED = 0
 FLAGSHIP_N = 20  # the batch workload's horizon (bench.py)
 PLAIN_WARM_CYCLES = 1
 ROBOT_BATCH = 5  # the flagship planner's batch: 4 homotopy classes + the free planner
+SHMPC_UNFUSED_STEPS = 2  # of cell F's unfused closed loop (phase 20): ~3-8 s a step on the host
 
 
 def check(cond, msg):
@@ -795,8 +820,9 @@ def remaining_phases(dev, card, codes, build_s):
     check(planner_t.solve_mpc(state_t, data_t).success, "cell E: torch-backend cycle 1 failed")
     Z_torch_first = planner_t._Z.copy()
     launches = {}
-    for route, solver, kernels, absent in (("default", {}, ("rti",), ("qp", "mirror")),
-                                           ("unfused", dict(rti_fused="off"), ("qp",), ("mirror", "rti"))):
+    for route, solver, kernels, absent, cycles in (
+            ("default", {}, ("rti",), ("qp", "mirror"), PLANNER_CYCLES),
+            ("unfused", dict(rti_fused="off"), ("qp",), ("mirror", "rti"), UNFUSED_CYCLES)):
         planner, state, data = jackal(**solver)
         s = planner.solver
         check(s.device.type == "cuda" and s.qp_backend == "cuda",
@@ -805,20 +831,20 @@ def remaining_phases(dev, card, codes, build_s):
               f"cell E {route}: fused {s.rti_fused} ({s.rti_fused_reason})")
         cuda_qp.reset_launch_counts()
         Z_first, times, selected, d_min, progress = contouring_closed_loop(
-            dev, planner, state, data, PLANNER_CYCLES, f"cell E {route}")
+            dev, planner, state, data, cycles, f"cell E {route}")
         launches[route] = dict(cuda_qp.launch_counts)
         diff = float(np.abs(Z_torch_first - Z_first).max())
         print(f"phase 17: cell E (system_jackal('tmpc'), Gaussian submodule, N={planner.N}, B="
-              f"{ROBOT_BATCH}) {route} route: {PLANNER_CYCLES}/{PLANNER_CYCLES} cycles succeeded, "
+              f"{ROBOT_BATCH}) {route} route: {cycles}/{cycles} cycles succeeded, "
               f"{progress:.2f} m of progress; cycle time median {np.median(times[1:]) * 1e3:.2f} ms, "
               f"max {np.max(times[1:]) * 1e3:.2f} ms [{card}] (first {times[0] * 1e3:.1f} ms); "
               f"selected planner per cycle {selected}; least pedestrian distance {d_min:.3f} m; "
               f"cycle 1 Z vs the torch backend: max |d| = {diff:.3e}; kernel launches "
               f"{launches[route]}; per cycle: "
-              + ", ".join(f"K{i} {launches[route][k] / PLANNER_CYCLES:.2f}"
+              + ", ".join(f"K{i} {launches[route][k] / cycles:.2f}"
                           for i, k in ((1, "qp"), (2, "mirror"), (3, "rti"))))
         check(diff < 5e-3, f"cell E {route}: cycle 1 differs from the torch backend")
-        check(progress > 1.0, f"cell E {route}: the robot made no progress")
+        check(progress > (1.0 if route == "default" else 0.5), f"cell E {route}: the robot made no progress")
         check(bool(np.isfinite(planner._Z).all()), f"cell E {route}: non-finite plan")
         for k in kernels:
             check(launches[route][k] > 0, f"cell E {route}: the {k} kernel never launched")
@@ -864,6 +890,315 @@ def remaining_phases(dev, card, codes, build_s):
         sys.stdout.flush()
     return entries
 
+
+def scenario_presets():
+    """name -> a function that builds (cfg, model, modules) afresh, with
+    keyword overrides of the SH-MPC section: the SH-MPC OCPs of phases 20-21
+    at their systems' horizons, the draw sized from the risk."""
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.utils.config import ScenarioConfig
+
+    def make(system, variant):
+        return lambda **scenario: presets.select_system(
+            system, variant, scenario_constraints=ScenarioConfig(**scenario))
+
+    return {"shmpc": make("jackalsimulator", "safe_horizon"),  # nu=3, nx=5, nh=24, N=30
+            "shmpc_hard": make("jackalsimulator", "safe_horizon_hard"),  # nu=2, nx=5
+            "rosnavigation_shmpc": make("rosnavigation", "safe_horizon")}  # nh=36, N=20
+
+
+@contextlib.contextmanager
+def recorded_steps(planner):
+    """Keep every SH-MPC device step that `planner` runs meanwhile: a list
+    of dicts with the solve's inputs (P, Z0, xinit, n_iter) and solutions
+    (Z of every solver), the packed result as
+    numpy, the step's wall time with the card synchronized before and after
+    (step_ms), and the batched solve's time by CUDA events (solve_ms)."""
+    import torch
+
+    module, solver = planner.modules.get("ScenarioConstraints"), planner.solver
+    solve, fused_step = solver.batch_impl, module._fused_step
+    steps = []
+
+    def timed_solve(Z0, P, xinit, n_iter, *args, **kwargs):
+        res, steps[-1]["solve_ms"] = event_ms(torch, lambda: solve(Z0, P, xinit, n_iter, *args, **kwargs))
+        steps[-1].update(P=P, Z0=Z0, xinit=xinit, n_iter=n_iter, Z=res.Z)
+        return res
+
+    def timed_step(*args, **kwargs):
+        steps.append({})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps[-1].update(step_ms=(time.perf_counter() - t0) * 1e3, packed=out[0].cpu().numpy())
+        return out
+
+    solver.batch_impl, module._fused_step = timed_solve, timed_step
+    try:
+        yield steps
+    finally:
+        del solver.batch_impl, module._fused_step
+
+
+def device_breakdown(phase, label, card, fn):
+    """One call of fn() under torch.profiler: its wall time (the card
+    synchronized after it), the device time summed over its kernels, the
+    idle share 1 - device / wall, and the five kernels with the most device
+    time. Where the profiler sees no kernel, the device time is printed as
+    not measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms <= 0:
+        print(f"phase {phase}: {label} under torch.profiler: wall {wall_ms:.1f} ms; device time not "
+              f"measured (the profiler saw no kernel) [{card}]")
+        return
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"phase {phase}: {label} under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+          f"{device_ms:.2f} ms in {sum(e.count for e in kernels)} kernel launches, idle share "
+          f"{1 - device_ms / wall_ms:.3f}; most device time: "
+          + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top)
+          + f" [{card}]")
+    sys.stdout.flush()
+
+
+def scenario_phases(dev, card, codes, build_s):
+    """Phases 20-21: SH-MPC. `codes`: name -> the stage code built in phase
+    2. Returns the kernels line's entries of K1 and K3 at the SH-MPC shapes,
+    name -> (K1's, K3's)."""
+    import torch
+
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.planner import Planner
+    from mpc_planner_tpu_torch.sim import ClosedLoopSimulator, Pedestrian
+
+    makers = scenario_presets()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    entries = {}
+
+    def planner_of(name, device=dev, costmap=False, **solver):
+        cfg, model, modules = makers[name]()
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, **solver))
+        # device None: the port's default, the card
+        planner = Planner(model, modules, cfg) if device is None else Planner(model, modules, cfg,
+                                                                             device=device)
+        state, data = presets.corridor_scene(cfg, n_pedestrians=12, seed=SEED)
+        if costmap:
+            data.costmap, data.costmap_meta = presets.two_wall_costmap(SEED)
+        planner.on_data_received(data, "reference_path")
+        return planner, state, data
+
+    def agreement(phase, name, costmap):
+        """Two cycles of `name` on the default route and on the torch backend
+        (on the card), each from identical inputs; both draw with one CUDA
+        generator. Cycle 1, from the scene's start: bit-equal P, equal
+        support counts and pruning flags, certificates within 1e-5, the
+        winner's Z within 5e-3. Cycle 2, from cycle 1's plan on the default
+        route (its stage-1 state, cold duals), where the scenario rows bind:
+        bit-equal P; the accounting and the solutions are printed beside the
+        same step solved by K3's plain version, unchecked (10 fixed-step RTI
+        iterations from a plan that is not converged end where rounding
+        takes them: PERF.md). Then K1 (MIRROR inside) and K3 against their
+        plain versions at the scenario batch, around perturbed converged
+        plans of cycle 1's P. Returns (K1's record, K3's record, the default
+        route's launch counts over its two cycles, its planner, state and
+        data)."""
+        from mpc_planner_tpu_torch.ops.rti import solve_rti_torch
+
+        runs = {route: planner_of(name, costmap=costmap, **solver)
+                for route, solver in (("default", {}), ("torch", dict(qp_backend="torch")))}
+        for route, (planner, _, _) in runs.items():
+            check(planner.solver.rti_fused == (route == "default"),
+                  f"{name} {route}: fused {planner.solver.rti_fused} ({planner.solver.rti_fused_reason})")
+        lead, follower = runs["default"][0], runs["torch"][0]
+        module = lead.modules.get("ScenarioConstraints")
+        B, ocp = module.cfg.scenario_constraints.parallel_solvers, lead.ocp
+        counts = dict.fromkeys(cuda_qp.launch_counts, 0)
+        first = {}
+        for cycle in (1, 2):
+            if cycle == 2:  # identical inputs: cycle 1's plan on the default route, cold duals
+                follower._Z, follower._output = lead._Z.copy(), lead._output
+                for planner in (lead, follower):
+                    planner.modules.get("ScenarioConstraints")._prev_duals = None
+                    planner.modules.get("Contouring").closest_segment = \
+                        lead.modules.get("Contouring").closest_segment
+                x1 = lead._Z[1, ocp.nu:].copy()
+                for _, state, _ in runs.values():
+                    state.from_array(x1)
+            steps, success = {}, {}
+            for route, (planner, state, data) in runs.items():
+                cuda_qp.reset_launch_counts()
+                with recorded_steps(planner) as steps[route]:
+                    t0 = time.perf_counter()
+                    success[route] = planner.solve_mpc(state, data).success
+                    cycle_s = time.perf_counter() - t0
+                if route == "default":
+                    counts = {k: counts[k] + v for k, v in cuda_qp.launch_counts.items()}
+                print(f"phase {phase}: {name} {route}: cycle {cycle} in {cycle_s * 1e3:.1f} ms (the card "
+                      f"synchronized around each device step), device steps "
+                      + ", ".join(f"{s['step_ms']:.2f} ms (batched solve {s['solve_ms']:.2f})"
+                                  for s in steps[route]) + f"; success {success[route]} [{card}]")
+            ut, uk = (module._unpack(steps[r][0]["packed"], B) for r in ("torch", "default"))
+            p_equal = torch.equal(steps["torch"][0]["P"], steps["default"][0]["P"])
+            cert_d = float(np.abs(ut[7] - uk[7]).max())
+            z_d = float(np.abs(ut[0] - uk[0]).max())
+            print(f"phase {phase}: {name} (nu={ocp.nu}, nx={ocp.nx}, nh={ocp.nh}, npar={ocp.npar}, "
+                  f"N={ocp.N}, {B} solvers x {module.n_samples} samples) cycle {cycle}: device step on "
+                  f"K3 vs the torch backend: P bit-equal {p_equal}; support {uk[6].tolist()} vs "
+                  f"{ut[6].tolist()}; pruning exact {uk[8].tolist()} vs {ut[8].tolist()}; certificate "
+                  f"{uk[7].round(4).tolist()}, max |d| {cert_d:.2e}; exit codes {uk[3].tolist()} vs "
+                  f"{ut[3].tolist()}; winner {uk[1]} vs {ut[1]}, its Z max |d| {z_d:.2e}")
+            check(p_equal, f"{name} cycle {cycle}: the device steps' parameter blocks differ")
+            if cycle == 1:
+                check(success["default"] and success["torch"], f"{name} cycle 1: planner success {success}")
+                check(np.array_equal(ut[6], uk[6]) and np.array_equal(ut[8], uk[8]),
+                      f"{name} cycle 1: support counts or pruning flags differ")
+                check(cert_d < 1e-5 and z_d < 5e-3, f"{name} cycle 1: certificate or the winner's Z differ")
+                first = steps["torch"][0]
+            else:  # the same step solved by K3's plain version
+                s, fused = steps["default"][0], lead.solver
+                Zc = s["Z0"].clone()
+                Zc[:, 0, ocp.nu:] = s["xinit"]
+                plain_Z = solve_rti_torch(
+                    Zc, s["P"], ocp, num_iterations=s["n_iter"], it0=fused.qp_iterations,
+                    warm_iters=fused.warm_qp_iters, mu0=fused.mu0, sigma_fixed=fused.warm_sigma,
+                    lm=fused.lm, mirror_x_only=fused._mirror_x_only, lb_template=fused._lb_template,
+                    ub_template=fused._ub_template).Z
+                per = {label: (Z - plain_Z).abs().amax(dim=(1, 2)).tolist()
+                       for label, Z in (("K3", s["Z"]), ("torch backend", steps["torch"][0]["Z"]))}
+                print(f"phase {phase}: {name} cycle 2 (not checked): max |Z - Z of K3's plain version| "
+                      f"per solver: " + "; ".join(f"{k} {[f'{v:.2e}' for v in vs]}" for k, vs in per.items()))
+        print(f"phase {phase}: {name}: K3 generated and built in {build_s['rti_' + name]:.1f} s")
+
+        plain, fused = follower.solver, lead.solver
+        P, Z0, x0 = (first[k] for k in ("P", "Z0", "xinit"))
+        Zs = plain.batch_impl(Z0, P, x0, RTI_ITERATIONS).Z
+        Zp = Zs + 0.01 * torch.randn(Zs.shape, device=dev, generator=gen)
+        Zp[:, 0, ocp.nu:] = x0
+        qp_record = check_qp(phase, card, plain, Zp, P)
+        check_linearization(phase, fused, codes[name], plain, Zp, P)
+        rti_record = check_rti(phase, card, fused, codes[name], Zp, P, x0, with_b1=False)
+        return (qp_record, rti_record, counts) + runs["default"]
+
+    # -- 20. cell F: SH-MPC on the slack model --------------------------------------------
+    qp_f, rti_f, _, planner, state, data = agreement(20, "shmpc", False)
+    device_breakdown(20, "cell F, a third cycle of that default-route planner", card,
+                     lambda: planner.solve_mpc(state, data))
+    cfg, _, _ = makers["shmpc"]()
+    _, scene = presets.corridor_scene(cfg, n_pedestrians=12, seed=SEED)
+
+    def pedestrians():  # the scene's pedestrians at their constant velocities
+        return [Pedestrian(position=o.position.copy(),
+                           velocity=(o.prediction.positions[0][1] - o.prediction.positions[0][0]) / cfg.dt,
+                           radius=o.radius) for o in scene.dynamic_obstacles if o.index >= 0]
+
+    launches = {}
+    for route, solver, steps, kernels, absent in (
+            ("default", {}, PLANNER_CYCLES, ("rti",), ("qp", "mirror")),
+            ("unfused", dict(rti_fused="off"), SHMPC_UNFUSED_STEPS, ("qp",), ("mirror", "rti"))):
+        c, model, modules = makers["shmpc"]()
+        c = c.replace(solver=dataclasses.replace(c.solver, **solver))
+        planner = Planner(model, modules, c)  # no device given: the card
+        s = planner.solver
+        check(s.device.type == "cuda" and s.qp_backend == "cuda" and s.rti_fused == (route == "default"),
+              f"cell F {route}: device {s.device}, backend {s.qp_backend}, fused {s.rti_fused} "
+              f"({s.rti_fused_reason})")
+        sim = ClosedLoopSimulator(planner, c, pedestrians(), scene.reference_path)
+        cuda_qp.reset_launch_counts()
+        res = sim.run(max_steps=steps)
+        launches[route] = dict(cuda_qp.launch_counts)
+        records = res.module_records
+        certs = [r["scenario_risk_certificate"] for r in records]
+        valid = [r["scenario_cert_valid"] for r in records]
+        times = np.asarray(res.cycle_times[1:]) * 1e3
+        stats = planner.profiler.stats
+        print(f"phase 20: cell F (system_jackalsimulator('safe_horizon'), N={c.N}, "
+              f"{c.scenario_constraints.parallel_solvers} solvers x {records[0]['scenario_n_samples']} "
+              f"samples, 12 pedestrians) {route} route through ClosedLoopSimulator: {res.steps} steps, "
+              f"{res.collisions} collisions, {res.infeasible_cycles} infeasible cycles, "
+              f"{res.trajectory[-1][0]:.2f} m of progress; cycle time median {np.median(times):.2f} ms, "
+              f"max {np.max(times):.2f} ms [{card}] (first {res.cycle_times[0] * 1e3:.1f} ms); valid "
+              f"certificate in {sum(valid)}/{len(valid)} cycles, median certificate "
+              f"{np.median(certs):.4f}, per cycle {[round(e, 4) for e in certs]}; selected solver "
+              f"{[r['scenario_selected_solver'] for r in records]}; kernel launches {launches[route]}; per "
+              f"cycle: " + ", ".join(f"K{i} {launches[route][k] / res.steps:.2f}"
+                                     for i, k in ((1, "qp"), (2, "mirror"), (3, "rti"))))
+        print(f"phase 20: cell F {route} host scopes, median ms over {res.steps} cycles: "
+              + ", ".join(f"{k} {stats[k].median * 1e3:.2f} (n={stats[k].count})"
+                          for k in ("planning", "update", "set_parameters", "optimization",
+                                    "scenario_host_assemble", "scenario_dispatch_solve_pull",
+                                    "scenario_escalation") if k in stats))
+        check(res.steps == steps and res.collisions == 0, f"cell F {route}: {res.collisions} collisions")
+        check(res.trajectory[-1][0] > (1.0 if route == "default" else 0.0),
+              f"cell F {route}: the robot made no progress")
+        for k in kernels:
+            check(launches[route][k] > 0, f"cell F {route}: the {k} kernel never launched")
+        for k in absent:
+            check(launches[route][k] == 0, f"cell F {route}: the {k} kernel launched")
+        sys.stdout.flush()
+    entries["shmpc"] = (dict(launches=launches["unfused"]["qp"], **qp_f),
+                        dict(launches=launches["default"]["rti"], **rti_f))
+
+    # One device step at BATCH scenario solvers (the draw sized for them)
+    c, model, modules = makers["shmpc"](parallel_solvers=BATCH)
+    planner = Planner(model, modules, c)
+    state, data = presets.corridor_scene(c, n_pedestrians=12, seed=SEED)
+    planner.on_data_received(data, "reference_path")
+    module = planner.modules.get("ScenarioConstraints")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_steps(planner) as steps:
+        for cycle in range(2):  # cold, then warm (carried duals)
+            check(planner.solve_mpc(state, data).success, f"{BATCH} scenario solvers: cycle {cycle} failed")
+    peak = torch.cuda.max_memory_allocated()
+    device_breakdown(20, f"{BATCH} scenario solvers, a third cycle", card,
+                     lambda: planner.solve_mpc(state, data))
+    for i, s in enumerate(steps):
+        u = module._unpack(s["packed"], BATCH)
+        print(f"phase 20: {BATCH} scenario solvers x {module.n_samples} samples, N={c.N}, device step "
+              f"{i + 1}/{len(steps)}: {s['step_ms']:.1f} ms, of which the batched solve (K3) "
+              f"{s['solve_ms']:.1f} ms ({100 * s['solve_ms'] / s['step_ms']:.1f}%); {int((u[3] == 1).sum())}/"
+              f"{BATCH} feasible, winner {u[1]}, certificate {u[7][u[1]]:.4f} [{card}]")
+        check(u[2] and bool(np.isfinite(u[0]).all()), f"{BATCH} scenario solvers: no feasible solver")
+    print(f"phase 20: {BATCH} scenario solvers: peak device memory {peak / 2**30:.2f} GiB over "
+          f"{len(steps)} device steps (draws [{BATCH}, {module.n_samples}, {c.max_obstacles}, {c.N - 1}, 2] "
+          f"f32 = {BATCH * module.n_samples * c.max_obstacles * (c.N - 1) * 2 * 4 / 2**30:.2f} GiB) [{card}]")
+    del planner, state, data, module, steps
+    sys.stdout.flush()
+
+    # -- 21. the other SH-MPC OCPs: one planner cycle on each route -----------------------------
+    for name, costmap in (("shmpc_hard", False), ("rosnavigation_shmpc", True)):
+        qp_record, rti_record, default_counts = agreement(21, name, costmap)[:3]
+        planner, state, data = planner_of(name, device=None, costmap=costmap, rti_fused="off")
+        check(planner.solver.qp_backend == "cuda" and not planner.solver.rti_fused,
+              f"{name} unfused: fused {planner.solver.rti_fused}")
+        cuda_qp.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = planner.solve_mpc(state, data)
+        cycle_s = time.perf_counter() - t0
+        unfused_counts = dict(cuda_qp.launch_counts)
+        check(out.success and bool(np.isfinite(planner._Z).all()), f"{name} unfused: the cycle failed")
+        print(f"phase 21: {name} unfused route: one planner cycle through solve_mpc succeeded in "
+              f"{cycle_s * 1e3:.1f} ms (the first of its kind) [{card}]; kernel launches {unfused_counts}")
+        check(default_counts["rti"] > 0 and default_counts["qp"] == 0,
+              f"{name}: the default route launched {default_counts}")
+        check(unfused_counts["qp"] > 0 and unfused_counts["mirror"] == 0 and unfused_counts["rti"] == 0,
+              f"{name}: the unfused route launched {unfused_counts}")
+        entries[name] = (dict(launches=unfused_counts["qp"], **qp_record),
+                         dict(launches=default_counts["rti"], **rti_record))
+        sys.stdout.flush()
+    return entries
 
 
 def main():
@@ -925,7 +1260,12 @@ def main():
     for name, build in family_presets().items():
         c, m, mods = build()
         family_codes[name] = StageCode(OCP(m, mods, c))
-    jobs += [(f"rti_{name}", cuda_rti.load_rti, (code,)) for name, code in family_codes.items()]
+    scenario_codes = {}
+    for name, build in scenario_presets().items():
+        c, m, mods = build()
+        scenario_codes[name] = StageCode(OCP(m, mods, c))
+    jobs += [(f"rti_{name}", cuda_rti.load_rti, (code,))
+             for name, code in {**family_codes, **scenario_codes}.items()]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = {name: pool.submit(timed, fn, *args) for name, fn, args in jobs}
         build_s = {name: f.result() for name, f in builds.items()}
@@ -1031,7 +1371,7 @@ def main():
     sys.stdout.flush()
 
     # -- 6. batch: cold + chained warm cycles ------------------------------------
-    for backend in ("cuda", "torch"):
+    for backend, warm_cycles in (("cuda", HOST_BOUND_WARM_CYCLES), ("torch", PLAIN_WARM_CYCLES)):
         c = cfg.replace(solver=cfg.solver.__class__(qp_backend=backend, rti_fused="off"))
         solver = SQPSolver(OCP(model, modules, c), device=dev)
         torch.cuda.synchronize()
@@ -1041,7 +1381,7 @@ def main():
         cold_s = time.perf_counter() - t0
         cold_ok = int((res.exit_code == EXIT_SUCCESS).sum())
         cycle_s = []
-        for _ in range(HOST_BOUND_WARM_CYCLES):
+        for _ in range(warm_cycles):
             t0 = time.perf_counter()
             res = solver.solve_batch(res.Z, P, x0, num_iterations=RTI_ITERATIONS,
                                      warm_duals=(res.lam_l, res.lam_u, res.exit_code == EXIT_SUCCESS))
@@ -1050,7 +1390,7 @@ def main():
         feasible = int((res.exit_code == EXIT_SUCCESS).sum())
         check(bool(torch.isfinite(res.Z).all()), f"{backend}: non-finite batch solution")
         print(f"phase 6: {backend}: B={BATCH} cold solve {cold_s * 1e3:.1f} ms ({cold_ok}/{BATCH} "
-              f"feasible); {HOST_BOUND_WARM_CYCLES} warm cycles mean {np.mean(cycle_s) * 1e3:.1f} ms, "
+              f"feasible); {warm_cycles} warm cycles mean {np.mean(cycle_s) * 1e3:.1f} ms, "
               f"last cycle {feasible}/{BATCH} feasible [{card}]")
         check(feasible > 0, f"{backend}: no feasible batch element")
     sys.stdout.flush()
@@ -1061,6 +1401,7 @@ def main():
     record["riccati_probe"], probe_launches = probe_phase(card, dev)
     flagship = flagship_phases(dev, card, flagship_codes, build_s)
     families = remaining_phases(dev, card, family_codes, build_s)
+    families.update(scenario_phases(dev, card, scenario_codes, build_s))
 
     kernels = [
         dict(name="qp", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/qp_kernel.cu",

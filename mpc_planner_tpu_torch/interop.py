@@ -2,7 +2,8 @@
 
 Converts the reference's numpy-side state into the port's tensors on a
 given device (the card unless the caller names another): a parameter block P, a warm start Z, xinit, the warm duals
-(lam_l, lam_u, ok) of a `SolveResult`, and a reference `QPData`. Every
+(lam_l, lam_u, ok) of a `SolveResult`, a reference `QPData`, and the
+SH-MPC scenario draws. Every
 function takes plain arrays or objects with the reference's field names,
 so this module imports neither jax nor the reference package. The system
 has no weights; these arrays are its whole state.
@@ -49,6 +50,14 @@ def warm_duals(lam_l, lam_u, ok, device=None):
 def qp_data(qp, device=None) -> QPData:
     """A reference QPData (batched, any array type) -> the port's QPData."""
     return QPData(*(to_tensor(getattr(qp, f), device) for f in QPData._fields))
+
+
+def scenario_draws_to_torch(noise, mode_idx=None, device=None):
+    """The JAX package's SH-MPC draws as the port's scenario module takes
+    them (ScenarioConstraintModule.draw): noise [B, S, M, N-1, 2] as f32 and
+    the mixture's mode per sample, mode_idx [B, S, M], as int64 (or None)."""
+    return (to_tensor(noise, device),
+            None if mode_idx is None else to_tensor(mode_idx, device, torch.int64))
 
 
 def check_same_registry(ref_params, port_params) -> None:

@@ -16,6 +16,7 @@ from mpc_planner_tpu_torch.modules.guidance_constraints import GuidanceConstrain
 from mpc_planner_tpu_torch.modules.linearized_constraints import LinearizedConstraintModule
 from mpc_planner_tpu_torch.modules.mpc_base import MPCBaseModule
 from mpc_planner_tpu_torch.modules.path_reference_velocity import PathReferenceVelocityModule
+from mpc_planner_tpu_torch.modules.scenario_constraints import ScenarioConstraintModule
 
 __all__ = [
     "Module",
@@ -34,4 +35,5 @@ __all__ = [
     "ContouringConstraintModule",
     "DecompConstraintModule",
     "GuidanceConstraintModule",
+    "ScenarioConstraintModule",
 ]

@@ -1,8 +1,10 @@
 """MIRROR regularization by cyclic Jacobi on tiny symmetric matrices.
 
-Counterpart of mpc_planner_tpu/ops/jacobi_eigh.py::mirror_unpacked and
+Counterpart of mpc_planner_tpu/ops/jacobi_eigh.py: `mirror_unpacked` is
 the plain torch version of the hand-written CUDA MIRROR kernel
-(ops/cuda_qp.py::mirror_cuda). It is the MIRROR of every CPU solve too:
+(ops/cuda_qp.py::mirror_cuda); `jacobi_eigh` (eigenpairs) and
+`mirror_jacobi` are the reference's row-update form of the same sweeps,
+kept for parity and on no solver route. It is the MIRROR of every CPU solve too:
 the JAX package's CPU path uses LAPACK eigh instead, and the difference
 stays inside the solver tests' tolerance.
 
@@ -14,6 +16,49 @@ to f32 rounding for the n <= 9 stage Hessians after about 6 sweeps.
 from __future__ import annotations
 
 import torch
+
+
+def jacobi_eigh(H: torch.Tensor, sweeps: int = 6):
+    """Eigendecomposition of symmetric H [..., n, n] by cyclic Jacobi:
+    (w [..., n], V [..., n, n]) with H ~= V diag(w) V^T."""
+    n = H.shape[-1]
+    A = H.clone()
+    V = torch.eye(n, dtype=H.dtype, device=H.device).expand(H.shape).clone()
+    for _ in range(sweeps):
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                _rotate(A, V, i, j)
+    return torch.diagonal(A, dim1=-2, dim2=-1).clone(), V
+
+
+def _rotate(A: torch.Tensor, V: torch.Tensor, i: int, j: int) -> None:
+    """One Jacobi rotation zeroing A[..., i, j] in place (i < j): A <- J^T A J,
+    V <- V J."""
+    aii, ajj, aij = A[..., i, i], A[..., j, j], A[..., i, j]
+    nonzero = aij.abs() > 1e-30
+    theta = (ajj - aii) / (2.0 * torch.where(nonzero, aij, 1e-30))
+    sign = torch.where(theta >= 0, 1.0, -1.0)
+    t = torch.where(nonzero, sign / (theta.abs() + torch.sqrt(theta * theta + 1.0)), 0.0)
+    c = (1.0 / torch.sqrt(t * t + 1.0))[..., None]
+    s = t[..., None] * c
+    rowi, rowj = A[..., i, :].clone(), A[..., j, :].clone()
+    A[..., i, :] = c * rowi - s * rowj
+    A[..., j, :] = s * rowi + c * rowj
+    coli, colj = A[..., :, i].clone(), A[..., :, j].clone()
+    A[..., :, i] = c * coli - s * colj
+    A[..., :, j] = s * coli + c * colj
+    A[..., i, j] = 0.0  # exact zeros on the eliminated pair
+    A[..., j, i] = 0.0
+    vi, vj = V[..., :, i].clone(), V[..., :, j].clone()
+    V[..., :, i] = c * vi - s * vj
+    V[..., :, j] = s * vi + c * vj
+
+
+def mirror_jacobi(H: torch.Tensor, lm: float, sweeps: int = 6) -> torch.Tensor:
+    """MIRROR from `jacobi_eigh`: eigenvalues -> max(|w|, lm)."""
+    w, V = jacobi_eigh(H, sweeps=sweeps)
+    w = torch.clamp(w.abs(), min=lm)
+    return torch.einsum("...ij,...j,...kj->...ik", V, w, V)
 
 
 def mirror_unpacked(H: torch.Tensor, lm: float, sweeps: int = 6) -> torch.Tensor:

@@ -3,9 +3,8 @@ mpc_planner_tpu/presets.py; ref mpc_planner_jackalsimulator/scripts/
 generate_jackalsimulator_solver.py:36-141 and the other systems'
 generation scripts). Every configuration and system variant of the
 reference builds here with the same model, modules, dimensions and
-parameter names, except the SH-MPC ones ("safe_horizon",
-"safe_horizon_hard"), which raise and name their ROADMAP.md item (M8).
-`flagship_problem` is the batch workload's OCP instance.
+parameter names, the SH-MPC ones ("safe_horizon", "safe_horizon_hard")
+included. `flagship_problem` is the batch workload's OCP instance.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from mpc_planner_tpu_torch.modules import (
     ModuleManager,
     MPCBaseModule,
     PathReferenceVelocityModule,
+    ScenarioConstraintModule,
 )
 from mpc_planner_tpu_torch.parameters import ParameterBlock
 from mpc_planner_tpu_torch.solver.ocp import OCP
@@ -85,6 +85,28 @@ def configuration_tmpc(cfg):
     """Ref :97-106: T-MPC++ with the ellipsoid safety submodule."""
     model, modules = configuration_no_obstacles(cfg)
     modules.add_module(GuidanceConstraintModule(cfg, EllipsoidConstraintModule))
+    return model, modules
+
+
+def configuration_safe_horizon(cfg):
+    """Ref :71-94: SH-MPC on the slack model (slack an input, nu=3, nx=5)
+    with scenario constraints."""
+    modules = ModuleManager()
+    model = ContouringSecondOrderUnicycleModelWithSlack()
+    _add_base(modules, cfg, slack=True)
+    modules.add_module(ContouringModule(cfg))
+    if cfg.contouring.dynamic_velocity_reference:
+        modules.add_module(PathReferenceVelocityModule(cfg))
+    modules.add_module(ScenarioConstraintModule(cfg))
+    return model, modules
+
+
+def configuration_safe_horizon_hard(cfg):
+    """SH-MPC without the slack: the same scenario halfspaces on the plain
+    contouring model (nvar=7); infeasible draws are reported as such
+    instead of being absorbed by the slack."""
+    model, modules = configuration_no_obstacles(cfg)
+    modules.add_module(ScenarioConstraintModule(cfg))
     return model, modules
 
 
@@ -136,20 +158,6 @@ def configuration_lmpcc(cfg):
     return model, modules
 
 
-# Variants of the reference's presets whose modules are not ported yet, and
-# the ROADMAP.md item that brings them.
-_NOT_PORTED = {
-    "safe_horizon": "M8 (SH-MPC)",
-    "safe_horizon_hard": "M8 (SH-MPC)",
-}
-
-
-def _check_ported(system: str, variant: str) -> None:
-    if variant in _NOT_PORTED:
-        raise ValueError(f"{system} variant {variant!r} is not ported yet: ROADMAP.md item "
-                         f"{_NOT_PORTED[variant]}")
-
-
 # -- per-system presets ------------------------------------------------------
 # One factory per reference system package, each returning (cfg, model,
 # modules) with the package's settings.yaml horizon, step and iteration
@@ -159,8 +167,8 @@ def _check_ported(system: str, variant: str) -> None:
 def system_jackalsimulator(variant: str = "tmpc", **overrides):
     """mpc_planner_jackalsimulator: N=30, dt=0.2, 10 RTI iterations
     (config/settings.yaml:2-17). Variants "tmpc" (the flagship), "basic",
-    "no_obstacles", "lmpcc", "curvature_aware", "tmpc_ca"."""
-    _check_ported("system_jackalsimulator", variant)
+    "no_obstacles", "safe_horizon", "safe_horizon_hard", "lmpcc",
+    "curvature_aware", "tmpc_ca"."""
     kw = dict(name="jackalsimulator", N=30, integrator_step=0.2)
     kw.update(overrides)
     cfg = default_config(**kw)
@@ -168,6 +176,8 @@ def system_jackalsimulator(variant: str = "tmpc", **overrides):
         "tmpc": configuration_tmpc,
         "basic": configuration_basic,
         "no_obstacles": configuration_no_obstacles,
+        "safe_horizon": configuration_safe_horizon,
+        "safe_horizon_hard": configuration_safe_horizon_hard,
         "lmpcc": configuration_lmpcc,
         "curvature_aware": configuration_curvature_aware,
         "tmpc_ca": configuration_tmpc_ca,
@@ -182,7 +192,6 @@ def system_jackal(variant: str = "tmpc", **overrides):
     GuidanceConstraintModule(constraint_submodule=GaussianConstraintModule));
     "ca" is the same on the curvature-aware model; "goal" is goal tracking
     + ellipsoids (:31-50); "lmpcc" (:76-95) is contouring + ellipsoids."""
-    _check_ported("system_jackal", variant)
     kw = dict(name="jackal", N=30, integrator_step=0.2)
     kw.update(overrides)
     cfg = default_config(**kw)
@@ -211,7 +220,6 @@ def system_dingo(variant: str = "tmpc", **overrides):
     (config/settings.yaml:2-3). T-MPC mirrors jackalsimulator
     (generate_dingo_solver.py:48-65); the lmpcc variant uses the holonomic
     point-mass model with goal tracking + T-MPC guidance (:68-85)."""
-    _check_ported("system_dingo", variant)
     kw = dict(name="dingo", N=30, integrator_step=0.1)
     kw.update(overrides)
     cfg = default_config(**kw)
@@ -233,8 +241,8 @@ def system_rosnavigation(variant: str = "lmpcc", **overrides):
     4 RTI iterations (config/settings.yaml:2-13); every variant adds
     costmap free-space DecompConstraints
     (generate_rosnavigation_solver.py:33-128). "tmpc" (:91-112) is the
-    slack model + guidance + decomp."""
-    _check_ported("system_rosnavigation", variant)
+    slack model + guidance + decomp, "safe_horizon" (:64-88) SH-MPC +
+    decomp."""
     kw = dict(name="rosnavigation", N=20, integrator_step=0.2)
     kw.update(overrides)
     cfg = default_config(**kw)
@@ -248,6 +256,8 @@ def system_rosnavigation(variant: str = "lmpcc", **overrides):
         if cfg.contouring.dynamic_velocity_reference:
             modules.add_module(PathReferenceVelocityModule(cfg))
         modules.add_module(GuidanceConstraintModule(cfg, EllipsoidConstraintModule))
+    elif variant == "safe_horizon":  # :64-88
+        model, modules = configuration_safe_horizon(cfg)
     else:  # lmpcc, :33-61
         model = ContouringSecondOrderUnicycleModel()
         _add_base(modules, cfg)

@@ -352,6 +352,28 @@ class SQPSolver:
                            iters=iters, lam_l=res.lam_l, lam_u=res.lam_u)
 
     # -- public API --------------------------------------------------------
+    def bound_limited_vars(self, Z, tol: float = 1e-2):
+        """Variables within `tol` of a box bound in a solution Z [N+1, nvar]
+        (numpy or a tensor): the acados wrapper's printIfBoundLimited
+        (acados_solver_interface.cpp:426-446). A list of (stage, name,
+        "lower" | "upper"); stage-0 states are skipped (pinned to xinit, as
+        the reference skips 'x' at k == 0)."""
+        ocp = self.ocp
+        Z = Z.detach().cpu().numpy() if isinstance(Z, torch.Tensor) else np.asarray(Z)
+        lb = np.asarray(ocp.lb_z, dtype=float)
+        ub = np.asarray(ocp.ub_z, dtype=float)
+        names = list(ocp.model.inputs) + list(ocp.model.states)
+        hits = []
+        for k in range(Z.shape[0]):
+            for j, name in enumerate(names):
+                if k == 0 and j >= ocp.nu:
+                    continue
+                if np.isfinite(lb[j]) and abs(Z[k, j] - lb[j]) < tol:
+                    hits.append((k, name, "lower"))
+                if np.isfinite(ub[j]) and abs(Z[k, j] - ub[j]) < tol:
+                    hits.append((k, name, "upper"))
+        return hits
+
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 

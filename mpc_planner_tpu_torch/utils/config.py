@@ -10,15 +10,19 @@ Backend selection differs: the reference's TPU keys (`qp_backend`
 "pallas"/"xla", `qp_wide_blocks`, `qp_mirror_in_kernel`) give way to
 `qp_backend: "auto" | "cuda" | "torch"`; `rti_fused: "auto" | "on" |
 "off"` keeps the reference's key (the fused whole-RTI kernel, on the cuda
-backend), but "auto" turns it on wherever it can be built. No `scenario`
-section yet (SH-MPC is not ported).
+backend), but "auto" turns it on wherever it can be built. The SH-MPC
+section (`ScenarioConfig`) and `max_obstacle_distance` equal the
+reference's, and `load_config` reads the same settings dict (or YAML file),
+so one settings dict configures both packages alike; keys the port does
+not carry (the reference's TPU solver keys) are skipped, as the reference
+skips unknown keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 @dataclass(frozen=True)
@@ -64,6 +68,29 @@ class ProbabilisticConfig:
     enable: bool = True
     risk: float = 0.05
     propagate_uncertainty: bool = True
+
+
+@dataclass(frozen=True)
+class ScenarioConfig:
+    """SH-MPC settings (ref scenario_constraints.py, settings.yaml:45-46;
+    the reference's comments on each choice are in
+    mpc_planner_tpu/utils/config.py)."""
+
+    parallel_solvers: int = 4
+    n_constraints: int = 24  # halfspaces per stage (ref scenario_constraints.py:26)
+    # Scenario samples drawn per solver. None derives the draw from
+    # (probabilistic.risk, confidence, support_bound) through the nonconvex
+    # scenario bound (modules/scenario_theory.py::sample_size); an int
+    # overrides the sizing. The a-posteriori certificate is computed either way.
+    n_samples: Optional[int] = None
+    confidence: float = 0.01  # beta: the certificate holds w.p. >= 1 - beta
+    # Per-stage support cardinality the draw is sized for (the certificate
+    # uses the observed count).
+    support_bound: int = 3
+    # Lateral warm-start span [m] across the parallel solvers (0: every
+    # solver starts from the planner's warm start, as the reference does).
+    warmstart_span: float = 0.0
+    enable_safe_horizon: bool = True
 
 
 @dataclass(frozen=True)
@@ -144,6 +171,7 @@ class Config:
     enable_output: bool = True
     deceleration_at_infeasible: float = 3.0  # [m/s^2]
     shift_previous_solution_forward: bool = False
+    max_obstacle_distance: float = 30.0  # [m] obstacles farther away are dropped
     debug_limits: bool = False
 
     robot: RobotConfig = field(default_factory=RobotConfig)
@@ -151,6 +179,7 @@ class Config:
     contouring: ContouringConfig = field(default_factory=ContouringConfig)
     t_mpc: TMPCConfig = field(default_factory=TMPCConfig)
     probabilistic: ProbabilisticConfig = field(default_factory=ProbabilisticConfig)
+    scenario_constraints: ScenarioConfig = field(default_factory=ScenarioConfig)
     decomp: DecompConfig = field(default_factory=DecompConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
     linearized_add_halfspaces: int = 0  # ref settings.yaml linearized_constraints
@@ -190,3 +219,43 @@ class Config:
 
 def default_config(**overrides: Any) -> Config:
     return Config().replace(**overrides) if overrides else Config()
+
+
+def _nested_update(cfg: Config, data: Dict[str, Any]) -> Config:
+    """Apply a (possibly nested) dict of overrides onto a Config: the
+    reference's rules (mpc_planner_tpu/utils/config.py:319-346), keys
+    renamed as settings.yaml spells them, unknown keys skipped."""
+    kwargs: Dict[str, Any] = {}
+    field_names = {f.name for f in dataclasses.fields(Config)}
+    rename = {"t-mpc": "t_mpc", "use_t-mpc++": "use_tmpc_pp"}
+    for key, value in data.items():
+        key = rename.get(key, key)
+        if key not in field_names:
+            continue
+        current = getattr(cfg, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            sub_fields = {f.name for f in dataclasses.fields(current)}
+            sub_kwargs = {rename.get(k, k): v for k, v in value.items()
+                          if rename.get(k, k) in sub_fields}
+            kwargs[key] = dataclasses.replace(current, **sub_kwargs)
+        elif key == "weights" and isinstance(value, dict):
+            kwargs[key] = {**current, **value}
+        else:
+            kwargs[key] = value
+    return dataclasses.replace(cfg, **kwargs)
+
+
+def load_config(path: Optional[str] = None, data: Optional[Dict[str, Any]] = None) -> Config:
+    """A Config from a YAML file or a dict with settings.yaml's keys. pyyaml
+    is imported only for a path; without it a path raises."""
+    cfg = Config()
+    if path is not None:
+        try:
+            import yaml
+        except ImportError as e:
+            raise RuntimeError("pyyaml unavailable; pass `data=` instead") from e
+        with open(path) as f:
+            data = yaml.safe_load(f)
+    if data:
+        cfg = _nested_update(cfg, data)
+    return cfg

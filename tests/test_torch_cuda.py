@@ -285,9 +285,11 @@ def test_qp_kernel_with_mirror_at_new_shapes(new_family, warm):
 
 
 PRESETS = [("jackalsimulator", v) for v in ("tmpc", "basic", "no_obstacles", "lmpcc",
-                                            "curvature_aware", "tmpc_ca")] + [
+                                            "curvature_aware", "tmpc_ca", "safe_horizon",
+                                            "safe_horizon_hard")] + [
     ("jackal", v) for v in ("tmpc", "ca", "goal", "lmpcc")] + [
-    ("dingo", "tmpc"), ("dingo", "lmpcc"), ("rosnavigation", "tmpc"), ("rosnavigation", "lmpcc")]
+    ("dingo", "tmpc"), ("dingo", "lmpcc"), ("rosnavigation", "tmpc"), ("rosnavigation", "lmpcc"),
+    ("rosnavigation", "safe_horizon")]
 
 
 @pytest.mark.parametrize("name,variant", PRESETS)

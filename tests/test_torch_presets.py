@@ -1,11 +1,10 @@
 """Port vs reference: the system presets, the device rule and the small
 host functions of the remaining modules, on the CPU.
 
-* Every preset variant of mpc_planner_tpu/presets.py that the port carries
-  (all but the SH-MPC ones) assembles with the same nu, nx, nh, npar, the
-  same parameter names at the same indices, the same bounds and the same
-  settings (mirror of tests/test_system_presets.py); the SH-MPC variants
-  raise and name their ROADMAP item.
+* Every preset variant of mpc_planner_tpu/presets.py (the SH-MPC ones
+  included) assembles with the same nu, nx, nh, npar, the same parameter
+  names at the same indices, the same bounds and the same settings (mirror
+  of tests/test_system_presets.py).
 * Entry points take the card by default: without a device and without CUDA,
   `Planner`, `SQPSolver` and the `interop` helpers raise and name
   `device="cpu"`; with `device="cpu"` they run here.
@@ -48,9 +47,9 @@ PORTED = [
     ("jackal", "tmpc"), ("jackal", "ca"), ("jackal", "goal"), ("jackal", "lmpcc"),
     ("dingo", "tmpc"), ("dingo", "lmpcc"),
     ("rosnavigation", "tmpc"), ("rosnavigation", "lmpcc"),
+    ("jackalsimulator", "safe_horizon"), ("jackalsimulator", "safe_horizon_hard"),
+    ("rosnavigation", "safe_horizon"),
 ]
-NOT_PORTED = [("jackalsimulator", "safe_horizon"), ("jackalsimulator", "safe_horizon_hard"),
-              ("rosnavigation", "safe_horizon")]
 
 
 def _same_ocp(jocp, tocp):
@@ -80,12 +79,6 @@ def test_bicycle_configuration_assembles_as_reference(curvature_aware):
     tocp = OCP(tmodel, tmodules, tc)
     assert (tocp.nu, tocp.nx, tocp.nvar) == (3, 6, 9)
     _same_ocp(JaxOCP(jmodel, jmodules, jc), tocp)
-
-
-@pytest.mark.parametrize("name,variant", NOT_PORTED)
-def test_shmpc_presets_raise_and_name_the_roadmap(name, variant):
-    with pytest.raises(ValueError, match="M8"):
-        torch_presets.select_system(name, variant=variant, N=8)
 
 
 def test_system_settings_match_reference():

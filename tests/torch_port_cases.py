@@ -250,18 +250,24 @@ def host_pass(pkg: str, cfg, configuration: str = "configuration_tmpc", n_pedest
 
 
 def system_pair(name: str = None, variant: str = None, N: int = N_SMALL, n_pedestrians: int = 3,
-                seed: int = 3, solver=None, costmap: bool = False, build=None, **cfg_overrides):
+                seed: int = 3, solver=None, costmap: bool = False, build=None, scenario=None,
+                **cfg_overrides):
     """A system preset (`select_system(name, variant)`) or a configuration
     (`build(presets, cfg) -> (model, modules)`) built by both packages with
-    the small solver settings, each with the same corridor scene (and the
-    same synthetic costmap)."""
+    the small solver settings (and `scenario` overrides of the SH-MPC
+    section), each with the same corridor scene (and the same synthetic
+    costmap)."""
     solver = SOLVER_SMALL if solver is None else solver
     sides = []
     for presets, default in ((jax_presets, jax_default_config), (torch_presets, torch_default_config)):
         if build is None:
             cfg, _, _ = presets.select_system(name, variant, N=N, **cfg_overrides)
+            if scenario:
+                cfg_overrides = dict(cfg_overrides, scenario_constraints=dataclasses.replace(
+                    cfg.scenario_constraints, **scenario))
             cfg, model, modules = presets.select_system(
                 name, variant, N=N, solver=dataclasses.replace(cfg.solver, **solver), **cfg_overrides)
+            cfg_overrides.pop("scenario_constraints", None)
         else:
             cfg = default(N=N, **cfg_overrides)
             cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, **solver))
@@ -309,7 +315,119 @@ def planner_pair(jax_side: Side, torch_side: Side):
         module = side.modules.get("GuidanceConstraints") if any(
             m.module_name == "GuidanceConstraints" for m in side.modules) else None
         out.append(dict(planner=planner, module=module, state=side.state, data=side.data, steps=[]))
+    if any(m.module_name == "ScenarioConstraints" for m in torch_side.modules):
+        inject_jax_draws(torch_side.modules.get("ScenarioConstraints"))
     return out[0], out[1]
+
+
+# -- SH-MPC: the JAX package's draws in the port ------------------------------------
+def jax_scenario_draws(seed: int, B: int, S: int, M: int, n_stages: int, logprob=None):
+    """The draws of the JAX package's SH-MPC step for sample seed `seed`
+    (mpc_planner_tpu/modules/scenario_constraints.py:281-282, :40, :74-82):
+    noise [B, S, M, n_stages, 2] and, for a mixture (`logprob` [M, K]), the
+    mode per sample [B, S, M], as numpy arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    keys = jax.random.split(jax.random.PRNGKey(seed), B)
+    if logprob is None:
+        return np.asarray(jax.vmap(lambda k: jax.random.normal(k, (S, M, n_stages, 2)))(keys)), None
+
+    def one(key):
+        k_mode, k_noise = jax.random.split(key)
+        mode = jax.random.categorical(k_mode, jnp.asarray(logprob, jnp.float32), axis=-1,
+                                      shape=(S, M))
+        return jax.random.normal(k_noise, (S, M, n_stages, 2)), mode
+
+    noise, mode = jax.vmap(one)(keys)
+    return np.asarray(noise), np.asarray(mode)
+
+
+def inject_jax_draws(module):
+    """Make the port's scenario module draw what the JAX package draws for
+    the module's current sample seed (through interop)."""
+    from mpc_planner_tpu_torch import interop
+
+    def draw(B, M, n_stages, logprob=None):
+        lp = None if logprob is None else logprob.cpu().numpy()
+        noise, mode = jax_scenario_draws(module._sample_seed, B, module.n_samples, M, n_stages, lp)
+        return interop.scenario_draws_to_torch(noise, mode, device=module._planner.solver.device)
+
+    module.draw = draw
+
+
+def shmpc_planner_pair(name: str, gap: float = 2.0, **kw):
+    """family_planner_pair of an SH-MPC family (the robot `gap` m behind a
+    pedestrian, so that scenario rows are active), each side recording its
+    device steps (`steps`) and the parameter blocks its solver received
+    (`P`); the port draws the JAX draws."""
+    js, ts = family_planner_pair(name, gap=gap, **kw)
+    for side, pkg in ((js, "jax"), (ts, "torch")):
+        side["module"] = side["planner"].modules.get("ScenarioConstraints")
+        side["P"] = []
+        solver = side["planner"].solver
+        solve = solver.batch_impl
+        if pkg == "jax":
+            import jax
+
+            def recorded(Z0, P, *a, _solve=solve, _side=side, **k):
+                jax.debug.callback(lambda p: _side["P"].append(np.asarray(p)), P)
+                return _solve(Z0, P, *a, **k)
+            _record_jax(side)
+        else:
+            def recorded(Z0, P, *a, _solve=solve, _side=side, **k):
+                _side["P"].append(P.numpy().copy())
+                return _solve(Z0, P, *a, **k)
+            _record_torch(side)
+        solver.batch_impl = recorded
+    return js, ts
+
+
+def shmpc_cycle(jax_side, torch_side, atol: float = 5e-3, p_rtol: float = 1e-6):
+    """One solve_mpc in both packages, compared step by step: parameter
+    blocks within `p_rtol` (a first cycle: the same inputs; a later one
+    starts from warm starts that agree within `atol`, pass p_rtol=None to
+    hold its blocks to `atol`), Z of every solver and of the winner within
+    `atol`, exit codes, support counts and pruning flags equal, the
+    certificates within 1e-5, the winner equal (or, where the reference's
+    feasible costs tie within 1e-5, one of the tied solvers: the argmin of
+    equal costs is decided by rounding), and the save_data record. Returns
+    the port's output."""
+    n_steps = len(torch_side["steps"])
+    outs = [s["planner"].solve_mpc(s["state"], s["data"]) for s in (jax_side, torch_side)]
+    assert outs[1].success == outs[0].success
+    module = torch_side["module"]
+    B = module.cfg.scenario_constraints.parallel_solvers
+    assert len(torch_side["steps"]) == len(jax_side["steps"]) > n_steps
+    assert len(torch_side["P"]) == len(jax_side["P"]) == len(torch_side["steps"])
+    for Pt, Pj in zip(torch_side["P"][n_steps:], jax_side["P"][n_steps:]):
+        if p_rtol is None:
+            np.testing.assert_allclose(Pt, Pj, rtol=0, atol=atol)
+        else:
+            np.testing.assert_allclose(Pt, Pj, rtol=p_rtol, atol=p_rtol)
+    tied = np.zeros(B, bool)
+    for (pj, Zj, ej), (pt, Zt, et) in zip(jax_side["steps"][n_steps:], torch_side["steps"][n_steps:]):
+        assert et == ej
+        uj, ut = module._unpack(pj, B), module._unpack(pt, B)
+        np.testing.assert_array_equal(ut[3], uj[3])  # exit codes
+        assert ut[2] == uj[2]  # found
+        cost = np.where(uj[3] == 1, uj[4], np.inf)
+        tied = cost <= cost[uj[1]] + 1e-5 * abs(cost[uj[1]])
+        assert ut[1] == uj[1] or tied[ut[1]], (ut[1], uj[1], uj[4])  # the winner
+        np.testing.assert_allclose(Zt, Zj, atol=atol, rtol=0)
+        np.testing.assert_allclose(ut[0], uj[0], atol=atol, rtol=0)
+        np.testing.assert_array_equal(ut[6], uj[6])  # support counts
+        np.testing.assert_allclose(ut[7], uj[7], rtol=0, atol=1e-5)  # certificates
+        np.testing.assert_array_equal(ut[8], uj[8])  # pruning exact
+    rec_j, rec_t = (s["planner"].modules.save_data_all() for s in (jax_side, torch_side))
+    assert sorted(rec_t) == sorted(rec_j)
+    for key in rec_j:
+        if key == "scenario_risk_certificate":
+            np.testing.assert_allclose(rec_t[key], rec_j[key], rtol=0, atol=1e-5)
+        elif key != "scenario_selected_solver" or not tied[rec_t[key]]:
+            assert rec_t[key] == rec_j[key], key
+    np.testing.assert_allclose(torch_side["planner"]._Z, jax_side["planner"]._Z, atol=atol, rtol=0)
+    return outs[1]
 
 
 def tmpc_planner_pair(N: int = N_SMALL, solver=None):
@@ -419,6 +537,8 @@ def _curved_path(side: Side):
     side.data.reference_path = {"x": xs, "y": 0.8 * np.sin(xs / 5.0)}
 
 
+SHMPC_SMALL = dict(n_samples=32, parallel_solvers=4)
+
 # name -> (system_pair arguments, an edit of each side's scene or None)
 FAMILIES = {
     "cc": (dict(build=_with(lambda M, cfg: [M.GaussianConstraintModule(cfg)])), None),
@@ -445,6 +565,13 @@ FAMILIES = {
     "tmpc": (dict(name="jackalsimulator", variant="tmpc"), None),
     "cc_static": (dict(build=_with(lambda M, cfg: [M.GaussianConstraintModule(cfg),
                                                     M.LinearizedConstraintModule(cfg)])), None),
+    # SH-MPC at a small draw (the planner pairs inject the JAX draws into the
+    # port: inject_jax_draws)
+    "shmpc": (dict(name="jackalsimulator", variant="safe_horizon", scenario=SHMPC_SMALL), None),
+    "shmpc_hard": (dict(name="jackalsimulator", variant="safe_horizon_hard",
+                        scenario=SHMPC_SMALL), None),
+    "rosnavigation_shmpc": (dict(name="rosnavigation", variant="safe_horizon", costmap=True,
+                                 scenario=SHMPC_SMALL), None),
 }
 
 
@@ -543,12 +670,12 @@ def check_generated_code(case, build_dir: str, rtol: float):
 
 
 def family_planner_pair(name: str, N: int = N_SMALL, n_pedestrians: int = 6, seed: int = 7,
-                        near_pedestrian: bool = True):
+                        near_pedestrian: bool = True, gap: float = 3.0):
     """Planners of both packages for family `name` (FAMILIES) on the same
     corridor scene (tmpc_planner_pair's): a contouring robot moving at 1 m/s
     behind a pedestrian (`near_pedestrian`; else standing at the origin, the
     KKT ladder's start), a goal-tracking one at the origin with its goal 4 m
-    ahead."""
+    ahead. `gap`: the robot's distance behind the pedestrian."""
     kwargs, edit = FAMILIES[name]
     js, ts = system_pair(N=N, n_pedestrians=n_pedestrians, seed=seed, **kwargs)
     for side in (js, ts):
@@ -557,7 +684,7 @@ def family_planner_pair(name: str, N: int = N_SMALL, n_pedestrians: int = 6, see
         if near_pedestrian and "spline" in side.model.states:
             # 3 m behind the first pedestrian: the obstacle rows are active and
             # the guidance planners' plans differ (no tie for the selection)
-            place_near_pedestrian(side.state, side.data, gap=3.0, speed=1.0)
+            place_near_pedestrian(side.state, side.data, gap=gap, speed=1.0)
             side.state.set("spline", side.state.get("x"))
         side.data.goal = side.state.get_position() + np.array([4.0, 0.5])
         side.data.goal_received = True
