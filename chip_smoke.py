@@ -4,8 +4,9 @@ NVIDIA GPU: builds the hand-written Hopper kernels from the checkout,
 holds each against its plain torch version, drives the planner's paths
 (goal tracking, the T-MPC++ flagship, the real Jackal's Gaussian T-MPC,
 one cycle of the bicycle, the point mass and rosnavigation's slack T-MPC,
-and SH-MPC through the closed-loop simulator), and prints one JSON result
-line.
+SH-MPC through the closed-loop simulator, the flagship with sampled
+guidance, the parallel-in-horizon QP, the batch split over a NCCL process
+group and the bridge), and prints one JSON result line.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,33 @@ result then):
  21. the same agreement for system_jackalsimulator("safe_horizon_hard")
      (nu=2) and system_rosnavigation("safe_horizon") (decomp rows after the
      scenario rows: nh=36, N=20, phase 19's costmap), and one planner cycle
-     of each on each route.
+     of each on each route;
+ 22. cell C with sampled guidance: system_jackalsimulator("tmpc") with
+     guidance_backend="sampled" (512 candidate paths a cycle, the sweep on
+     the card) through ClosedLoopSimulator on corridor_scene(12)'s
+     pedestrians, 20 steps on the default route and 2 with rti_fused="off":
+     every step succeeds, no collision, >= 2 guidance classes on cycle 1, K3
+     only / K1 only; the sweep (draw + score) timed at S=512 and S=8192 with
+     its peak memory, and held against the same function on the CPU from the
+     same draws (positions and cost < 1e-5 relative, side and feasible
+     equal);
+ 23. solve_qp(horizon_parallel=True) against the sequential sweeps on cell
+     D's QPs (B=1024, N=20) and cell C's (B=5, N=30) from phases 13-16 (dz <
+     1e-4, duals < 5e-3 relative), each timed once beside K1 on the same QPs;
+     one cycle of cell C on qp_backend="torch" with horizon_parallel against
+     phase 15's cycle 1 (5e-3);
+ 24. parallel.distributed_solve_step on NCCL with world size 1 (cuda:0)
+     over cell D's batch through K3, a cold and a warm-chained cycle
+     (winner shifted, duals carried, consistency 0.9 on the winner): winner,
+     found and Z bit-equal to solve_batch + argmin_objective; the step's
+     time beside its solve's; the process group destroyed after;
+ 25. cell E's planner behind PlannerBridgeServer (a thread, a Unix socket in
+     a temporary directory): 20 cycles of obstacles + tick from a client,
+     every command successful and equal to the same planner driven
+     directly by a RobotLoop on the same messages and RTI budget; the
+     round trip's median beside solve_mpc's; the run recorded by
+     ExperimentUtil and exported, one Planner.visualize JSON saved
+     (matplotlib never imported).
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work (ops/cuda_qp.py::bound_ms over the operation
 and byte counts of qp_work, mirror_work, rti_work and probe_work), and the
@@ -156,6 +183,9 @@ FLAGSHIP_N = 20  # the batch workload's horizon (bench.py)
 PLAIN_WARM_CYCLES = 1
 ROBOT_BATCH = 5  # the flagship planner's batch: 4 homotopy classes + the free planner
 SHMPC_UNFUSED_STEPS = 2  # of cell F's unfused closed loop (phase 20): ~3-8 s a step on the host
+SAMPLED_SAMPLES = 512  # candidate paths of the sampled guidance sweep (phase 22)
+SAMPLED_UNFUSED_STEPS = 2  # of phase 22's unfused closed loop: ~2-4 s a step on the host
+DISTRIBUTED_REPS = 10  # timed warm steps, and solves alone, of phase 24: ~35 ms each
 
 
 def check(cond, msg):
@@ -188,6 +218,25 @@ def walk_pedestrians(state, data, cfg):
             o.position, velocity, cfg.dt, cfg.N, cfg.probabilistic.enable)
     data.obstacle_block = pack_obstacles(data.dynamic_obstacles, cfg.N)
     data.ego_position = state.get_position()
+
+
+def scene_pedestrians(cfg, scene):
+    """The simulator's pedestrians for a corridor scene: its pedestrians at
+    their constant velocities."""
+    from mpc_planner_tpu_torch.sim import Pedestrian
+
+    return [Pedestrian(position=o.position.copy(),
+                       velocity=(o.prediction.positions[0][1] - o.prediction.positions[0][0]) / cfg.dt,
+                       radius=o.radius) for o in scene.dynamic_obstacles if o.index >= 0]
+
+
+def free_port():
+    """A free TCP port on localhost (for a process group's rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def cuda_ms(torch, fn, reps):
@@ -731,11 +780,17 @@ def flagship_phases(dev, card, codes, build_s):
               f"feasible [{card}]")
         sys.stdout.flush()
 
-    return dict(qp=dict(launches=launches["unfused"]["qp"], **qp_record),
-                mirror=dict(launches=launches["unfused"]["mirror"], **mirror_record),  # 0: checked above
-                rti=dict(launches=launches["fused"]["rti"], **rti_record),
-                qp_robot=dict(launches=launches["unfused"]["qp"], **qp_robot_record),
-                rti_robot=dict(launches=launches["fused"]["rti"], **rti_robot_record))
+    records = dict(qp=dict(launches=launches["unfused"]["qp"], **qp_record),
+                   mirror=dict(launches=launches["unfused"]["mirror"], **mirror_record),  # 0: checked above
+                   rti=dict(launches=launches["fused"]["rti"], **rti_record),
+                   qp_robot=dict(launches=launches["unfused"]["qp"], **qp_robot_record),
+                   rti_robot=dict(launches=launches["fused"]["rti"], **rti_robot_record))
+    # what phases 23 and 24 take: the QP data of cells D and C, cell D's batch,
+    # cycle 1 of cell C on the torch backend
+    inputs = dict(qps={f"cell D (B={BATCH}, N={FLAGSHIP_N})": (plain, Zp, P),
+                       f"cell C (B={ROBOT_BATCH}, N={N})": (plain_r, Zr, P_r)},
+                  batch=(Zb, P, x0), torch_cycle_Z=Z_torch_first)
+    return records, inputs
 
 
 def family_presets():
@@ -981,7 +1036,7 @@ def scenario_phases(dev, card, codes, build_s):
     from mpc_planner_tpu_torch import presets
     from mpc_planner_tpu_torch.ops import cuda_qp
     from mpc_planner_tpu_torch.planner import Planner
-    from mpc_planner_tpu_torch.sim import ClosedLoopSimulator, Pedestrian
+    from mpc_planner_tpu_torch.sim import ClosedLoopSimulator
 
     makers = scenario_presets()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1098,11 +1153,6 @@ def scenario_phases(dev, card, codes, build_s):
     cfg, _, _ = makers["shmpc"]()
     _, scene = presets.corridor_scene(cfg, n_pedestrians=12, seed=SEED)
 
-    def pedestrians():  # the scene's pedestrians at their constant velocities
-        return [Pedestrian(position=o.position.copy(),
-                           velocity=(o.prediction.positions[0][1] - o.prediction.positions[0][0]) / cfg.dt,
-                           radius=o.radius) for o in scene.dynamic_obstacles if o.index >= 0]
-
     launches = {}
     for route, solver, steps, kernels, absent in (
             ("default", {}, PLANNER_CYCLES, ("rti",), ("qp", "mirror")),
@@ -1114,7 +1164,7 @@ def scenario_phases(dev, card, codes, build_s):
         check(s.device.type == "cuda" and s.qp_backend == "cuda" and s.rti_fused == (route == "default"),
               f"cell F {route}: device {s.device}, backend {s.qp_backend}, fused {s.rti_fused} "
               f"({s.rti_fused_reason})")
-        sim = ClosedLoopSimulator(planner, c, pedestrians(), scene.reference_path)
+        sim = ClosedLoopSimulator(planner, c, scene_pedestrians(cfg, scene), scene.reference_path)
         cuda_qp.reset_launch_counts()
         res = sim.run(max_steps=steps)
         launches[route] = dict(cuda_qp.launch_counts)
@@ -1199,6 +1249,342 @@ def scenario_phases(dev, card, codes, build_s):
                          dict(launches=default_counts["rti"], **rti_record))
         sys.stdout.flush()
     return entries
+
+
+def sampled_guidance_phase(dev, card):
+    """Phase 22: cell C with the sampled guidance backend
+    (guidance_backend="sampled", S=SAMPLED_SAMPLES candidates a cycle) through
+    ClosedLoopSimulator, the device sweep held against its plain version on
+    the CPU, and the sweep timed at S=512 and S=8192."""
+    import torch
+
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.guidance import device_prm
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.planner import Planner
+    from mpc_planner_tpu_torch.sim import ClosedLoopSimulator
+    from mpc_planner_tpu_torch.utils.config import default_config
+
+    base = default_config()
+    t_mpc = dataclasses.replace(base.t_mpc, guidance_backend="sampled", sampled_n_samples=SAMPLED_SAMPLES)
+    captured = {}
+    score = device_prm.score
+
+    def recording(*args):  # the first sweep's inputs, kept for the checks below
+        captured.setdefault("args", args)
+        return score(*args)
+
+    for route, solver, steps, kernels, absent in (
+            ("default", {}, PLANNER_CYCLES, ("rti",), ("qp", "mirror")),
+            ("unfused", dict(rti_fused="off"), SAMPLED_UNFUSED_STEPS, ("qp",), ("mirror", "rti"))):
+        cfg, model, modules = presets.system_jackalsimulator(
+            "tmpc", t_mpc=t_mpc, solver=dataclasses.replace(base.solver, **solver))
+        planner = Planner(model, modules, cfg)  # no device given: the card
+        s = planner.solver
+        check(s.device.type == "cuda" and s.qp_backend == "cuda" and s.rti_fused == (route == "default"),
+              f"cell C sampled {route}: device {s.device}, backend {s.qp_backend}, fused {s.rti_fused}")
+        module = planner.modules.get("GuidanceConstraints")
+        classes, update = [], module.update
+
+        def counted(state, data, md, update=update, module=module, classes=classes):
+            update(state, data, md)
+            classes.append(len({(t.obstacle_ids, t.signature) for t in module._trajectories
+                                if not t.braking}))
+
+        module.update = counted
+        _, scene = presets.corridor_scene(cfg, n_pedestrians=12, seed=SEED)
+        sim = ClosedLoopSimulator(planner, cfg, scene_pedestrians(cfg, scene), scene.reference_path)
+        device_prm.score = recording
+        cuda_qp.reset_launch_counts()
+        try:
+            res = sim.run(max_steps=steps)
+        finally:
+            device_prm.score = score
+        launches = dict(cuda_qp.launch_counts)
+        check(isinstance(module.guidance, device_prm.DeviceSampledPlanner)
+              and module.guidance.device.type == "cuda", "cell C sampled: the sweep is not on the card")
+        times = np.asarray(res.cycle_times[1:]) * 1e3
+        print(f"phase 22: cell C (system_jackalsimulator('tmpc'), N={cfg.N}, B={ROBOT_BATCH}) with "
+              f"sampled guidance (S={SAMPLED_SAMPLES}) {route} route through ClosedLoopSimulator: "
+              f"{res.steps} steps, {res.collisions} collisions, {res.infeasible_cycles} infeasible cycles, "
+              f"{res.trajectory[-1][0]:.2f} m of progress; cycle time median {np.median(times):.2f} ms, "
+              f"max {np.max(times):.2f} ms [{card}] (first {res.cycle_times[0] * 1e3:.1f} ms); guidance "
+              f"classes per cycle {classes}; selected planner "
+              f"{[r['guidance_selected_planner'] for r in res.module_records]}; kernel launches "
+              f"{launches}; per cycle: " + ", ".join(f"K{i} {launches[k] / res.steps:.2f}"
+                                                    for i, k in ((1, "qp"), (2, "mirror"), (3, "rti"))))
+        check(res.steps == steps and res.infeasible_cycles == 0 and res.collisions == 0,
+              f"cell C sampled {route}: {res.infeasible_cycles} infeasible cycles, "
+              f"{res.collisions} collisions in {res.steps} steps")
+        check(classes[0] >= 2, f"cell C sampled {route}: {classes[0]} guidance class(es) on cycle 1")
+        check(res.trajectory[-1][0] > (1.0 if route == "default" else 0.0),
+              f"cell C sampled {route}: the robot made no progress")
+        for k in kernels:
+            check(launches[k] > 0, f"cell C sampled {route}: the {k} kernel never launched")
+        for k in absent:
+            check(launches[k] == 0, f"cell C sampled {route}: the {k} kernel launched")
+        sys.stdout.flush()
+
+    # The sweep alone (draw + score, what the card runs per cycle) on cycle 1's
+    # scene, and against the same function on the CPU from the same draws
+    basis, start, goals, pred, clear, _, _, _, track, s_prof, weight = captured["args"]
+    w_lat = float(np.float32(max(cfg.road.width / 2.0 - cfg.robot_radius, 0.5) + 1.0))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for S in (SAMPLED_SAMPLES, 8192):
+        draws = device_prm.draw(gen, S, goals.shape[0], w_lat)
+        scene_args = (basis, start, goals, pred, clear)
+
+        def sweep():
+            return device_prm.score(*scene_args, *device_prm.draw(gen, S, goals.shape[0], w_lat),
+                                    track, s_prof, weight)
+
+        ms = cuda_ms(torch, sweep, 20)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = device_prm.score(*scene_args, *draws, track, s_prof, weight)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        ref = device_prm.score(*(a.cpu() for a in scene_args + draws + (track, s_prof, weight)))
+        errs = {name: rel_err(o.cpu(), r) for name, o, r in (("positions", out[0], ref[0]),
+                                                             ("cost", out[2], ref[2]))}
+        same = {name: bool(torch.equal(o.cpu(), r)) for name, o, r in (("side", out[1], ref[1]),
+                                                                       ("feasible", out[3], ref[3]))}
+        M = pred.shape[0]
+        print(f"phase 22: sweep S={S}, M={M}, N={pred.shape[1] - 1}: draw + score {ms:.3f} ms on the card, "
+              f"peak memory above the inputs {peak / 2**20:.1f} MiB (the [S, M, N+1, 2] distances "
+              f"{S * M * pred.shape[1] * 2 * 4 / 2**20:.1f} MiB) [{card}]; vs the CPU on the same draws: "
+              f"rel err positions {errs['positions']:.2e}, cost {errs['cost']:.2e}; side equal "
+              f"{same['side']}, feasible equal {same['feasible']} ({int(ref[3].sum())}/{S} feasible)")
+        check(max(errs.values()) < 1e-5 and all(same.values()),
+              f"the sweep on the card disagrees with the CPU at S={S}: {errs}, {same}")
+    sys.stdout.flush()
+
+
+def horizon_parallel_phase(dev, card, inputs):
+    """Phase 23: solve_qp(horizon_parallel=True) against the sequential
+    sweeps on the card, on cells D's and C's QPs (phases 13-16), both timed
+    once beside K1 on the same QPs; then one planner cycle of cell C on the
+    torch backend with horizon_parallel=True."""
+    import torch
+
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.planner import Planner
+    from mpc_planner_tpu_torch.solver.qp import solve_qp
+
+    for i, (label, (plain, Zp, P)) in enumerate(inputs["qps"].items()):
+        nu, nx, iters = plain.ocp.nu, plain.ocp.nx, plain.qp_iterations
+        qp = plain._linearize(Zp, P)  # MIRROR-regularized, as the torch backend solves it
+        if i == 0:  # load the scans' kernels (inverse, triangular solves) once
+            solve_qp(qp, nu, nx, iterations=1, horizon_parallel=True)
+        seq, seq_ms = event_ms(torch, lambda: solve_qp(qp, nu, nx, iterations=iters, mu0=plain.mu0))
+        par, par_ms = event_ms(torch, lambda: solve_qp(qp, nu, nx, iterations=iters, mu0=plain.mu0,
+                                                       horizon_parallel=True))
+        k1_ms = cuda_ms(torch, lambda: cuda_qp.solve_qp_cuda(qp, nu, nx, iterations=iters,
+                                                             mu0=plain.mu0), 20)
+        errs = {"dz": rel_err(par.dz, seq.dz), "lam_l": rel_err(par.lam_l, seq.lam_l),
+                "lam_u": rel_err(par.lam_u, seq.lam_u)}
+        print(f"phase 23: {label}, {iters} IP iterations: horizon_parallel vs sequential sweeps rel err "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; plain torch scans {par_ms:.1f} ms, sequential {seq_ms:.1f} ms (scan/sequential "
+              f"{par_ms / seq_ms:.2f}), K1 on the same QPs {k1_ms:.3f} ms [{card}]")
+        check(errs["dz"] <= 1e-4 and max(errs["lam_l"], errs["lam_u"]) <= 5e-3,
+              f"horizon_parallel disagrees with the sequential sweeps on {label}: {errs}")
+    cfg, model, modules = presets.system_jackalsimulator("tmpc")
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, qp_backend="torch", horizon_parallel=True))
+    planner = Planner(model, modules, cfg)
+    state, data = presets.corridor_scene(cfg, n_pedestrians=12, seed=SEED)
+    planner.on_data_received(data, "reference_path")
+    check(planner.solver.horizon_parallel and planner.solver.qp_backend == "torch",
+          "cell C horizon_parallel: the key did not reach the solver")
+    t0 = time.perf_counter()
+    check(planner.solve_mpc(state, data).success, "cell C horizon_parallel: cycle 1 failed")
+    cycle_s = time.perf_counter() - t0
+    diff = float(np.abs(planner._Z - inputs["torch_cycle_Z"]).max())
+    print(f"phase 23: cell C cycle 1 on the torch backend with horizon_parallel: {cycle_s * 1e3:.1f} ms "
+          f"[{card}]; Z vs the sequential sweeps' cycle 1 (phase 15) max |d| = {diff:.3e}")
+    check(diff < 5e-3, "cell C horizon_parallel: cycle 1 differs from the sequential sweeps'")
+    sys.stdout.flush()
+
+
+def distributed_phase(dev, card, batch):
+    """Phase 24: parallel.distributed_solve_step on NCCL with world size 1
+    over cell D's batch through K3, a cold and a warm-chained cycle, held
+    bit for bit against solve_batch + argmin_objective on the same inputs
+    (qp_retry_cold off, so that solve_batch is the same one batch_impl);
+    the step's time beside the solve's."""
+    import torch
+    import torch.distributed as dist
+
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.parallel import (
+        argmin_objective,
+        batch_mesh,
+        distributed_solve_step,
+        initialize_distributed,
+    )
+    from mpc_planner_tpu_torch.solver.ocp import OCP
+    from mpc_planner_tpu_torch.solver.sqp import EXIT_SUCCESS, SQPSolver
+    from mpc_planner_tpu_torch.utils.config import default_config
+
+    Zb, P, x0 = batch
+    B = Zb.shape[0]
+    initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        check(dist.get_backend() == "nccl", f"the process group runs {dist.get_backend()}, not NCCL")
+        mesh = batch_mesh(dev)
+        c = default_config(N=FLAGSHIP_N)
+        c = c.replace(solver=dataclasses.replace(c.solver, qp_retry_cold=False))
+        solver = SQPSolver(OCP(*presets.configuration_tmpc(c), c), device=dev)
+        check(solver.rti_fused, f"phase 24: the solver is not on K3 ({solver.rti_fused_reason})")
+        ones = torch.ones(B, device=dev)
+        cold = distributed_solve_step(solver, mesh, RTI_ITERATIONS)
+        warm = distributed_solve_step(solver, mesh, RTI_ITERATIONS, warm=True)
+        cuda_qp.reset_launch_counts()
+        Zw, idx, found, res = cold(Zb, P, x0, ones)
+        ref = solver.solve_batch(Zb, P, x0, num_iterations=RTI_ITERATIONS)
+        r_idx, r_found = argmin_objective(ref.pobj, ref.exit_code == EXIT_SUCCESS)
+        Zs = torch.cat([Zw[1:], Zw[-1:]]).expand(B, -1, -1).contiguous()
+        consistency = torch.where(torch.arange(B, device=dev) == idx, 0.9, 1.0)
+        duals = (res.lam_l, res.lam_u, res.exit_code == EXIT_SUCCESS)
+        Zw2, idx2, found2, res2 = warm(Zs, P, x0, consistency, *duals)
+        ref2 = solver.solve_batch(Zs, P, x0, num_iterations=RTI_ITERATIONS,
+                                  warm_duals=(ref.lam_l, ref.lam_u, ref.exit_code == EXIT_SUCCESS))
+        r_idx2, r_found2 = argmin_objective(ref2.pobj, ref2.exit_code == EXIT_SUCCESS, 0.9, r_idx)
+        launches = dict(cuda_qp.launch_counts)
+        same = [int(i) == int(j) and bool(f) == bool(g) and torch.equal(z, r.Z[j]) and torch.equal(q.Z, r.Z)
+                for i, f, z, q, j, g, r in ((idx, found, Zw, res, r_idx, r_found, ref),
+                                            (idx2, found2, Zw2, res2, r_idx2, r_found2, ref2))]
+        step_ms, solve_ms = [], []
+        for _ in range(DISTRIBUTED_REPS):  # in turns: the difference is a fraction of a ms
+            for times, fn in ((step_ms, lambda: warm(Zs, P, x0, consistency, *duals)),
+                              (solve_ms, lambda: solver.batch_impl(Zs, P, x0, RTI_ITERATIONS, warm0=duals))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        print(f"phase 24: distributed_solve_step on {dist.get_backend()} (world size {mesh.world_size}, "
+              f"{mesh.device}) over cell D's batch (B={B}, N={FLAGSHIP_N}, K3): cold winner {int(idx)} "
+              f"(found {bool(found)}, {int((res.exit_code == EXIT_SUCCESS).sum())}/{B} feasible), warm "
+              f"winner {int(idx2)} (found {bool(found2)}); equal bit for bit to solve_batch + "
+              f"argmin_objective: {same}; kernel launches {launches}; warm step median "
+              f"{np.median(step_ms):.2f} ms, its solve alone {np.median(solve_ms):.2f} ms, the "
+              f"collectives' overhead {np.median(step_ms) - np.median(solve_ms):.2f} ms [{card}]")
+        check(all(same) and bool(found) and bool(found2),
+              f"phase 24: the distributed step differs from solve_batch + argmin_objective: {same}")
+        check(launches["rti"] > 0 and launches["qp"] == 0, f"phase 24: kernel launches {launches}")
+    finally:
+        dist.destroy_process_group()
+    sys.stdout.flush()
+
+
+def bridge_phase(card):
+    """Phase 25: cell E's planner on the card behind PlannerBridgeServer (a
+    thread, a Unix socket in a temporary directory): 20 cycles of obstacles +
+    tick from a client, against the same planner driven directly by a
+    RobotLoop on the same messages, with the same RTI budget per cycle (the
+    budget depends on the clock, so the direct loop takes the count the
+    served planner took); the run recorded by ExperimentUtil and exported;
+    one Planner.visualize JSON saved."""
+    import os
+    import tempfile
+    import threading
+
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.bridge import PlannerBridgeClient, PlannerBridgeServer
+    from mpc_planner_tpu_torch.msgs import GaussianMsg, ObstacleGMMMsg
+    from mpc_planner_tpu_torch.planner import Planner
+    from mpc_planner_tpu_torch.systems import RobotLoop
+    from mpc_planner_tpu_torch.utils.experiment import ExperimentUtil
+
+    planners = []
+    for _ in range(2):
+        cfg, model, modules = presets.system_jackal("tmpc")
+        planners.append(Planner(model, modules, cfg))  # no device given: the card
+    served, direct = planners
+    check(served.solver.device.type == "cuda" and served.solver.rti_fused,
+          "phase 25: the served planner is not on K3")
+    budgets, solve_s = [], []
+    budget, solve = served._iterations_for_budget, served.solve_mpc
+
+    def recorded_budget(data):
+        budgets.append(budget(data))
+        return budgets[-1]
+
+    def timed_solve(state, data):
+        t0 = time.perf_counter()
+        out = solve(state, data)
+        solve_s.append(time.perf_counter() - t0)
+        return out
+
+    served._iterations_for_budget, served.solve_mpc = recorded_budget, timed_solve
+    direct._iterations_for_budget = lambda data: budgets[-1]
+    _, scene = presets.corridor_scene(cfg, n_pedestrians=12, seed=SEED)
+    peds = [(p.position.copy(), p.velocity.copy()) for p in scene_pedestrians(cfg, scene)]
+    path = scene.reference_path
+    loop = RobotLoop(direct, cfg)
+    loop.set_reference_path(path["x"], path["y"])
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = ExperimentUtil(cfg, save_folder=tmp)
+        server = PlannerBridgeServer(served, cfg, address=os.path.join(tmp, "planner.sock"))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        client = PlannerBridgeClient(server.address, timeout=120.0)
+        check(client.ping(), "phase 25: no pong")
+        check(client.set_reference_path(path["x"], path["y"])["type"] == "ok", "phase 25: path refused")
+        x, y, psi, v = 0.0, 0.0, 0.0, 0.0
+        tick_s, diffs = [], []
+        for _ in range(PLANNER_CYCLES):
+            sigma = np.sqrt(np.cumsum(np.full(cfg.N, (0.3 * cfg.dt) ** 2)))
+            msgs = []
+            for i, (p, u) in enumerate(peds):
+                mean = p[None] + np.arange(1, cfg.N + 1)[:, None] * cfg.dt * u[None]
+                msgs.append(ObstacleGMMMsg(
+                    id=i, pose_x=float(p[0]), pose_y=float(p[1]), radius=cfg.obstacle_radius,
+                    gaussians=[GaussianMsg(mean_x=mean[:, 0].tolist(), mean_y=mean[:, 1].tolist(),
+                                           major_semiaxis=sigma.tolist(), minor_semiaxis=sigma.tolist())],
+                    probabilities=[1.0]))
+            t0 = time.perf_counter()
+            client.send_obstacles(msgs)
+            resp = client.tick([x, y, psi], v)
+            tick_s.append(time.perf_counter() - t0)
+            raw = [ObstacleGMMMsg.from_dict(m.to_dict()).to_raw_obstacle() for m in msgs]
+            cmd = loop.tick([x, y, psi], v, raw)
+            exp.update(loop.state, direct, loop.data, runtime_s=tick_s[-1])
+            check(resp["type"] == "command" and resp["success"], f"phase 25: tick failed: {resp}")
+            diffs.append(max(abs(resp["v"] - cmd[0]), abs(resp["w"] - cmd[1]),
+                             float(np.abs(np.asarray(resp["trajectory"])
+                                          - direct._output.trajectory.positions).max())))
+            check(cmd[2] and diffs[-1] == 0.0,
+                  f"phase 25: the served command {resp['v'], resp['w']} differs from the direct {cmd}")
+            v = resp["v"]
+            psi += resp["w"] * cfg.dt
+            x += v * np.cos(psi) * cfg.dt
+            y += v * np.sin(psi) * cfg.dt
+            peds = [(p + cfg.dt * u, u) for p, u in peds]
+        check(client.shutdown()["type"] == "ok", "phase 25: shutdown refused")
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "phase 25: the server did not stop")
+        exp.on_task_complete(objective_reached=False)
+        exported = exp.export_data()
+        viz_path = os.path.join(tmp, "visualize.json")
+        viz = direct.visualize(loop.state, loop.data)
+        viz.save(viz_path)
+        kinds = sorted({a["type"] for a in viz.artifacts})
+        sizes = os.path.getsize(exported), os.path.getsize(viz_path)
+    check("candidates" in kinds and "obstacles" in kinds, f"phase 25: visualize gave {kinds}")
+    check("matplotlib" not in sys.modules, "phase 25: matplotlib was imported")
+    tick_ms, solve_ms = np.median(tick_s[1:]) * 1e3, np.median(solve_s[1:]) * 1e3
+    print(f"phase 25: cell E (system_jackal('tmpc')) behind PlannerBridgeServer: {PLANNER_CYCLES}/"
+          f"{PLANNER_CYCLES} commands succeeded, equal to the directly driven planner's (max |d| "
+          f"{max(diffs):.1e}; RTI budget per cycle {budgets}); {x:.2f} m of progress; obstacles + tick "
+          f"round trip median {tick_ms:.2f} ms, solve_mpc median {solve_ms:.2f} ms, the bridge's "
+          f"overhead {tick_ms - solve_ms:.2f} ms [{card}]; ExperimentUtil export {sizes[0]} bytes, "
+          f"Planner.visualize JSON {sizes[1]} bytes ({', '.join(kinds)})")
+    sys.stdout.flush()
 
 
 def main():
@@ -1399,9 +1785,13 @@ def main():
         dev, card, stage_code, Z0, P, x0, Zp, plain_solver, make_planner, closed_loop,
         Z_torch_first)
     record["riccati_probe"], probe_launches = probe_phase(card, dev)
-    flagship = flagship_phases(dev, card, flagship_codes, build_s)
+    flagship, flagship_inputs = flagship_phases(dev, card, flagship_codes, build_s)
     families = remaining_phases(dev, card, family_codes, build_s)
     families.update(scenario_phases(dev, card, scenario_codes, build_s))
+    sampled_guidance_phase(dev, card)
+    horizon_parallel_phase(dev, card, flagship_inputs)
+    distributed_phase(dev, card, flagship_inputs["batch"])
+    bridge_phase(card)
 
     kernels = [
         dict(name="qp", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/qp_kernel.cu",

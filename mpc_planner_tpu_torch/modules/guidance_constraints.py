@@ -101,7 +101,8 @@ class GuidanceConstraintModule(ConstraintModule):
         if self.guidance is None:
             from mpc_planner_tpu_torch.guidance import make_guidance_planner
 
-            self.guidance = make_guidance_planner(self.cfg)
+            device = None if self._planner is None else self._planner.solver.device
+            self.guidance = make_guidance_planner(self.cfg, device=device)
         v_ref = self.cfg.weights.get("reference_velocity", 1.0)
         with self._scope("guidance_update"):
             self._trajectories = self.guidance.update(

@@ -190,6 +190,31 @@ class Planner:
     def on_data_received(self, data: RealTimeData, data_name: str) -> None:
         self.modules.on_data_received(data, data_name)
 
+    def visualize(self, state: State, data: RealTimeData):
+        """Collect visualization artifacts for this cycle
+        (ref planner.cpp:176-223 + per-module visualize()). The guidance
+        module's batch of plans stays on the device between cycles; it is
+        copied to the host here, once."""
+        from mpc_planner_tpu_torch.utils.visualization import Visualizer
+
+        viz = Visualizer()
+        if len(self._output.trajectory) > 0:
+            viz.add_trajectory(self._output.trajectory.positions, "planned_trajectory")
+        if self._module_data.warmstart_xy is not None:
+            viz.add_trajectory(self._module_data.warmstart_xy, "warmstart_trajectory")
+        if data.obstacle_block is not None:
+            viz.add_obstacles(data.obstacle_block)
+            viz.add_prediction_ellipses(data.obstacle_block)
+        if data.robot_area:
+            viz.add_robot_area(state.get_position(), state.get("psi"), data.robot_area)
+        if self._module_data.static_obstacles is not None:
+            viz.add_halfspaces(self._module_data.static_obstacles.reshape(-1, 3), "road_constraints")
+        gmod = self.modules.get("GuidanceConstraints")
+        if gmod is not None and gmod._last_batch_Z is not None:
+            viz.add_tmpc_candidates(gmod._last_batch_Z.cpu().numpy(), self.model,
+                                    gmod._selected_planner)
+        return viz
+
     def is_objective_reached(self, state: State, data: RealTimeData) -> bool:
         return all(m.is_objective_reached(state, data) for m in self.modules)
 

@@ -65,7 +65,7 @@ def _cholesky(R):
     positive definite, like jnp.linalg.cholesky: the IP loop's freeze
     guard then keeps that element's old iterate."""
     L, info = torch.linalg.cholesky_ex(R)
-    return torch.where((info != 0)[:, None, None], torch.nan, L)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
 def _riccati_factor(H_bar, A, Bm, nu: int, reg: float):
@@ -131,6 +131,7 @@ def solve_qp(
     warm_duals=None,
     mehrotra: bool = True,
     sigma_fixed: float = 0.1,
+    horizon_parallel: bool = False,
 ) -> QPSolution:
     """Fixed-count IP solve of a batch of QPs.
 
@@ -138,7 +139,9 @@ def solve_qp(
     previous QP (HPIPM warm_start=2), used where `ok` (the previous QP
     converged); other elements start cold. `mehrotra=False` runs one
     centered Newton step per iteration at `sigma_fixed` instead of the
-    predictor-corrector pair.
+    predictor-corrector pair. `horizon_parallel` solves each Newton system
+    with the scans of solver/parallel_riccati.py (O(log N) dependent rounds)
+    in place of the sequential Riccati sweeps: the same systems.
     """
     mask_l, mask_u = data.mask_l, data.mask_u
     red = (1, 2)
@@ -171,7 +174,18 @@ def solve_qp(
 
         w = torch.clamp(mask_l * lam_l / s_l + mask_u * lam_u / s_u, 0.0, _W_MAX)
         H_bar = data.H + torch.einsum("bkrv,bkr,bkrw->bkvw", D, w, D)
-        factors = _riccati_factor(H_bar, data.A, data.B, nu, reg)
+        if horizon_parallel:
+            from mpc_planner_tpu_torch.solver import parallel_riccati
+
+            prep = parallel_riccati.prepare(H_bar, data.A, data.B, nu, nx, reg)
+
+            def solve_linear(g_bar, r):
+                return parallel_riccati.solve(prep, g_bar, r, data.B, nu, nx)
+        else:
+            factors = _riccati_factor(H_bar, data.A, data.B, nu, reg)
+
+            def solve_linear(g_bar, r):
+                return _riccati_linear(factors, g_bar, r, data.A, data.B, nu, nx)
 
         r_eq = (
             torch.einsum("bkxy,bky->bkx", data.A, zeta[:, :-1, nu:])
@@ -189,7 +203,7 @@ def solve_qp(
                 + mask_u * (rc_u - lam_u * rho_u) / s_u
             )
             g_bar = g_stat + torch.einsum("bkrv,bkr->bkv", D, coef)
-            dz = _riccati_linear(factors, g_bar, r_eq, data.A, data.B, nu, nx)
+            dz = solve_linear(g_bar, r_eq)
             Ddz = torch.einsum("bkrv,bkv->bkr", D, dz)
             ds_l = (Ddz + rho_l) * mask_l
             ds_u = (rho_u - Ddz) * mask_u

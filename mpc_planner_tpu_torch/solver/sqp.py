@@ -113,6 +113,8 @@ class SQPSolver:
         self.warm_corrector_only = bool(s.qp_warm_corrector_only)
         self.warm_sigma = float(s.qp_warm_sigma)
         self.qp_retry_cold = bool(s.qp_retry_cold)
+        # The parallel-in-horizon scans: plain torch path only (the key's note)
+        self.horizon_parallel = bool(s.horizon_parallel)
 
         N, nu, nx, nvar, nh = ocp.N, ocp.nu, ocp.nx, ocp.nvar, ocp.nh
         self.nrows = nu + nx + nh
@@ -272,7 +274,8 @@ class SQPSolver:
         if self.qp_backend == "cuda":
             return solve_qp_cuda(self._linearize(Z, P, raw_hessian=True), ocp.nu, ocp.nx,
                                  mirror_lm=self.lm, mirror_x_only=self._mirror_x_only, **common)
-        return solve_qp(self._linearize(Z, P), ocp.nu, ocp.nx, **common)
+        return solve_qp(self._linearize(Z, P), ocp.nu, ocp.nx,
+                        horizon_parallel=self.horizon_parallel, **common)
 
     # -- batched SQP-RTI loop ---------------------------------------------
     def batch_impl(self, Z0, P, xinit, num_iterations: int, warm0=None,

@@ -50,7 +50,9 @@ class TMPCConfig:
     braking_deceleration: float = 2.0  # [m/s^2]
     # "lateral" (default): homotopy classes constructed in the path frame
     # (guidance/homotopy.py); "prm": a seeded space-time Visibility-PRM
-    # (guidance/prm.py); "sampled" (device sweep) is not ported.
+    # (guidance/prm.py); "sampled": one batched sweep of
+    # `sampled_n_samples` candidate paths on the planner's device
+    # (guidance/device_prm.py).
     guidance_backend: str = "lateral"
     sampled_n_samples: int = 512
     prm_n_samples: int = 30  # ref guidance_planner.yaml n_samples
@@ -150,6 +152,13 @@ class SolverConfig:
     # res_eq) are re-solved at the full cold budget in the same cycle.
     qp_mu_stall: float = 1e-3
     qp_retry_cold: bool = True
+    # Solve the QP's Newton systems with the parallel-in-horizon scans
+    # (solver/parallel_riccati.py: O(log N) dependent rounds) in place of
+    # the sequential Riccati sweeps. Acts on qp_backend="torch" only: the
+    # kernels K1 and K3 ignore it and keep their sequential recursion, as
+    # the reference's Pallas route ignores it
+    # (mpc_planner_tpu/utils/config.py:229-235).
+    horizon_parallel: bool = False
     timeout_margin: float = 0.006  # [s] subtracted from budget (ref planner.cpp:117-118)
 
 

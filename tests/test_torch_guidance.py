@@ -8,7 +8,9 @@ module's host half, on the same scene in both packages.
 * `GuidanceConstraintModule._warmstarts_from_guidance`: equal.
 * The whole host pass of configuration_tmpc (`update_all`, the parameter
   fill and the module's own trajectory list): equal.
-* `make_guidance_planner`: "sampled" (a demoted backend) names ROADMAP M11.
+* `make_guidance_planner`: "sampled" builds the device sweep on the given
+  device (tests/test_torch_device_guidance.py holds it to the reference);
+  an unknown backend raises.
 """
 
 import numpy as np
@@ -94,9 +96,11 @@ def test_warmstarts_from_guidance_equal(passes):
 
 
 def test_sampled_backend_names_roadmap_item():
+    from mpc_planner_tpu_torch.guidance.device_prm import DeviceSampledPlanner
+
     _, tc = _configs(guidance_backend="sampled")
-    with pytest.raises(ValueError, match="M11"):
-        guidance.make_guidance_planner(tc)
+    planner = guidance.make_guidance_planner(tc, device="cpu")
+    assert isinstance(planner, DeviceSampledPlanner) and planner.device.type == "cpu"
     _, tc = _configs(guidance_backend="nope")
     with pytest.raises(ValueError, match="Unknown guidance backend"):
         guidance.make_guidance_planner(tc)

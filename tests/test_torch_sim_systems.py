@@ -15,6 +15,11 @@
   each held against the JAX package's run on outcome: no collision, forward
   progress, the same step count. The draws differ between the packages, so
   the trajectories are not compared.
+* The T-MPC++ corridor of examples/02_tmpc_corridor.py (the flagship at
+  N=10, four oncoming pedestrians with social forces, 20 m) on the port's
+  simulator against the JAX package's: the same completion and collision
+  count, step counts within 2 (slow-marked: ~6 min on the CPU; a shorter
+  twin still pays the reference's T-MPC compiles, ~2.5 min).
 """
 
 import dataclasses
@@ -316,3 +321,37 @@ def test_scenario_closed_loop_twin():
 def test_scenario_closed_loop():
     """The reference's 30 steps (tests/test_scenario.py:72-83)."""
     _same_outcome(_closed_loop("torch", 30), _closed_loop("jax", 30), progress=1.5)
+
+
+# -- the T-MPC++ corridor ----------------------------------------------------------
+def _tmpc_corridor(pkg: str, steps: int):
+    """examples/02_tmpc_corridor.py's run in package `pkg`; the SimResult."""
+    if pkg == "jax":
+        import mpc_planner_tpu.planner as P
+        import mpc_planner_tpu.presets as presets
+        import mpc_planner_tpu.sim.simulator as S
+        make, kw = P.Planner, {}
+    else:
+        import mpc_planner_tpu_torch.presets as presets
+        import mpc_planner_tpu_torch.sim as S
+        make, kw = Planner, {"device": "cpu"}
+    c = presets.default_config(N=10)
+    model, modules = presets.configuration_tmpc(c)
+    planner = make(model, modules, c, **kw)
+    xs = np.linspace(0.0, 20.0, 12)
+    rng = np.random.default_rng(3)
+    peds = [S.Pedestrian(position=np.array([4.0 + 3.5 * i, float(rng.uniform(-1.5, 1.5))]),
+                         velocity=np.array([-0.9, float(rng.uniform(-0.2, 0.2))])) for i in range(4)]
+    sim = S.ClosedLoopSimulator(planner, c, peds, {"x": xs, "y": np.zeros_like(xs)},
+                                social_forces=True, robot_aware=True)
+    return sim.run(max_steps=steps)
+
+
+@pytest.mark.slow
+def test_tmpc_corridor_closed_loop():
+    """The whole corridor: the same completion and collisions (none), steps
+    within 2 of the reference's."""
+    res, ref = _tmpc_corridor("torch", 200), _tmpc_corridor("jax", 200)
+    assert res.completed and ref.completed
+    assert res.collisions == ref.collisions == 0
+    assert abs(res.steps - ref.steps) <= 2
