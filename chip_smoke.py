@@ -6,7 +6,8 @@ holds each against its plain torch version, drives the planner's paths
 one cycle of the bicycle, the point mass and rosnavigation's slack T-MPC,
 SH-MPC through the closed-loop simulator, the flagship with sampled
 guidance, the parallel-in-horizon QP, the batch split over a NCCL process
-group and the bridge), and prints one JSON result line.
+group, the bridge and the experiments of mpc_planner_tpu_torch/experiments),
+and prints one JSON result line.
 
     python3 chip_smoke.py
 
@@ -23,8 +24,9 @@ result then):
      library in parallel: K1 + K2, K4, and K3 (from the stage code
      generated for each OCP) for system_jackal("goal"), the flagship OCP,
      system_jackal("tmpc") (Gaussian), the bicycle, dingo's point mass,
-     rosnavigation's T-MPC and the three SH-MPC OCPs; the build times are
-     printed;
+     rosnavigation's T-MPC, the three SH-MPC OCPs, and configuration_basic
+     and configuration_safe_horizon at N=20 (phase 26's corridor rows); the
+     build times are printed;
   3. K2 MIRROR kernel vs plain on seeded symmetric [B*(N+1), n, n]
      stacks, n = 5 and 7 (max |d| / max |H| < 1e-5);
   4. K1 QP kernel vs plain on QPs of system_jackal("goal") at B=1024,
@@ -148,7 +150,19 @@ result then):
      directly by a RobotLoop on the same messages and RTI budget; the
      round trip's median beside solve_mpc's; the run recorded by
      ExperimentUtil and exported, one Planner.visualize JSON saved
-     (matplotlib never imported).
+     (matplotlib never imported);
+ 26. the experiments' functions (mpc_planner_tpu_torch/experiments)
+     at a cut size, each with the launch counts read around it:
+     corridor_benchmark.run_row for T-MPC++ and MPC (ellipsoid) at 4 and 12
+     pedestrians and SH-MPC at 12, seed 0 each (K3 only; every row must
+     complete, the T-MPC++ and MPC rows with 0 collisions; SH-MPC's
+     configuration collides in this scene on both packages, so its
+     collisions are printed, not gated), and 40 steps of T-MPC++ at
+     samples_per_class=250 (B = 1001 parallel guesses); guidance_ab at 2 scenes; batch_sweep at B=128
+     and 1024, n30_latency at B=1024 and 5 (warm iterations 6 and 4), both
+     K3 only at 2 cycles x 2 repetitions; fused_rti_check at B=1024 (K3
+     against K1 and the plain route: Z < 5e-3 relative, exit codes within
+     1%), each route timed.
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work (ops/cuda_qp.py::bound_ms over the operation
 and byte counts of qp_work, mirror_work, rti_work and probe_work), and the
@@ -186,6 +200,19 @@ SHMPC_UNFUSED_STEPS = 2  # of cell F's unfused closed loop (phase 20): ~3-8 s a 
 SAMPLED_SAMPLES = 512  # candidate paths of the sampled guidance sweep (phase 22)
 SAMPLED_UNFUSED_STEPS = 2  # of phase 22's unfused closed loop: ~2-4 s a step on the host
 DISTRIBUTED_REPS = 10  # timed warm steps, and solves alone, of phase 24: ~35 ms each
+# Phase 26's corridor rows: (label, configuration in presets, pedestrians, whether a
+# collision fails the phase), seed 0 each. SH-MPC's configuration collides in this scene
+# on both packages (PERF.md): its row must complete, its collisions are printed.
+CORRIDOR_ROWS = (("T-MPC++", "configuration_tmpc", 4, True),
+                 ("T-MPC++", "configuration_tmpc", 12, True),
+                 ("MPC (ellipsoid)", "configuration_basic", 4, True),
+                 ("MPC (ellipsoid)", "configuration_basic", 12, True),
+                 ("SH-MPC (slack)", "configuration_safe_horizon", 12, False))
+CORRIDOR_MAX_STEPS = 200  # the experiment's default; a completed run stops at the goal (~100 steps)
+CORRIDOR_SAMPLES_PER_CLASS = 250  # 4 classes x 250 + the free planner: B = 1001 guesses
+CORRIDOR_WIDE_STEPS = 40  # of the B = 1001 row: ~0.3 s a cycle, host guidance
+SWEEP_BATCHES = (128, BATCH)  # phase 26's batch_sweep: one resident wave and the flagship batch
+N30_BATCHES = (BATCH, ROBOT_BATCH)  # phase 26's n30_latency
 
 
 def check(cond, msg):
@@ -1587,6 +1614,87 @@ def bridge_phase(card):
     sys.stdout.flush()
 
 
+def experiment_phases(dev, card):
+    """Phase 26: the experiments' functions on the card at a cut size
+    (the full experiments run on their own): corridor_benchmark.run_row for
+    T-MPC++ and MPC (ellipsoid) at 4 and 12 pedestrians and SH-MPC at 12,
+    seed 0 each, every row completed, the T-MPC++ and MPC rows without a
+    collision (CORRIDOR_ROWS); one T-MPC++ row at
+    ~1,000 parallel guesses (samples_per_class); guidance_ab at 2 scenes;
+    batch_sweep, n30_latency and fused_rti_check at fewer repetitions. The
+    launch counts of each are read around it."""
+    from mpc_planner_tpu_torch import presets
+    from mpc_planner_tpu_torch.experiments import (
+        batch_sweep,
+        fused_rti_check,
+        guidance_ab,
+        n30_latency,
+    )
+    from mpc_planner_tpu_torch.experiments import corridor_benchmark as cb
+    from mpc_planner_tpu_torch.ops import cuda_qp
+
+    def counted(label, fn, kernels, absent=()):
+        """fn() with the launch counts set to 0 before and read after: each of
+        `kernels` launched, none of `absent`."""
+        cuda_qp.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_qp.launch_counts)
+        check(all(launches[k] > 0 for k in kernels) and not any(launches[k] for k in absent),
+              f"phase 26: {label} launched {launches}")
+        print(f"phase 26: {label}: {seconds:.1f} s, kernel launches {launches}")
+        sys.stdout.flush()
+        return out
+
+    t_phase = time.perf_counter()
+    rows = {}
+
+    def corridor():
+        for label, make, peds, no_collision in CORRIDOR_ROWS:
+            row = cb.run_row(getattr(presets, make), cb.build_config(), peds, 1, CORRIDOR_MAX_STEPS,
+                             dev, label=label)
+            rows[label, peds] = row
+            check(row["completed"] == 1 and (row["collisions"] == 0 or not no_collision),
+                  f"phase 26: corridor row {label} at {peds} pedestrians: {row}")
+
+    counted("corridor rows (seed 0 each, completed; T-MPC++ and MPC without a collision)",
+            corridor, ("rti",), ("qp", "mirror"))
+    for (label, peds), row in rows.items():
+        print(f"phase 26: corridor {label}, {peds} pedestrians: duration {row['duration_mean']} s, "
+              f"cycle mean {row['cycle_ms_mean']} ms, p99 {row['cycle_ms_p99']} ms, B={row['B']}, "
+              f"infeasible {row['infeasible']}, certificate {row['scenario_certificate']} [{card}]")
+    cfg = cb.build_config(samples_per_class=CORRIDOR_SAMPLES_PER_CLASS)
+    wide = counted(f"corridor T-MPC++ at samples_per_class={CORRIDOR_SAMPLES_PER_CLASS}",
+                   lambda: cb.run_row(presets.configuration_tmpc, cfg, 12, 1, CORRIDOR_WIDE_STEPS,
+                                      dev, label="T-MPC++"), ("rti",), ("qp", "mirror"))
+    check(wide["B"] >= 1000 and wide["cycle_ms_mean"] is not None,
+          f"phase 26: the wide T-MPC++ row: {wide}")
+    print(f"phase 26: corridor T-MPC++ at B={wide['B']} parallel guesses, 12 pedestrians, "
+          f"{CORRIDOR_WIDE_STEPS} steps: {wide['collisions']} collisions, cycle mean "
+          f"{wide['cycle_ms_mean']} ms, p99 {wide['cycle_ms_p99']} ms [{card}]")
+
+    ab = guidance_ab.run(2, 12, dev)
+    check([r["backend"] for r in ab] == list(guidance_ab.BACKENDS)
+          and all(r["classes_per_scene"] >= 1 for r in ab), f"phase 26: guidance_ab rows {ab}")
+
+    sweep, _ = counted(f"batch_sweep at B={SWEEP_BATCHES} (2 cycles x 2 repetitions)",
+                       lambda: batch_sweep.sweep(SWEEP_BATCHES, cycles=2, reps=2, device=dev),
+                       ("rti",), ("qp", "mirror"))
+    check(all(np.isfinite(r[1]) and r[3] > 0 for r in sweep), f"phase 26: batch_sweep {sweep}")
+    latency = counted(f"n30_latency at B={N30_BATCHES}, warm iterations 6 and 4 (2 cycles x 2)",
+                      lambda: n30_latency.latency_rows(N30_BATCHES, (6, 4), cycles=2, reps=2,
+                                                       device=dev), ("rti",), ("qp", "mirror"))
+    check(all(r["feasible_steady"] > 0 for r in latency), f"phase 26: n30_latency {latency}")
+    agree, times = counted(f"fused_rti_check at B={BATCH}",
+                           lambda: fused_rti_check.check(BATCH, device=dev, reps=(3, 1, 1),
+                                                         latency=False), ("rti", "qp"), ("mirror",))
+    check(all(r["ok"] for r in agree), f"phase 26: fused_rti_check {agree}")
+    print(f"phase 26: the experiments ran in {time.perf_counter() - t_phase:.1f} s; fused_rti_check "
+          f"B={BATCH}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()) + f" [{card}]")
+    sys.stdout.flush()
+
+
 def main():
     import torch
 
@@ -1631,6 +1739,9 @@ def main():
     for n in (FLAGSHIP_N, N):
         c = default_config(N=n)
         flagship_codes[n] = StageCode(OCP(*presets.configuration_tmpc(c), c))
+    c = default_config(N=FLAGSHIP_N)  # phase 26's corridor rows (T-MPC++ shares flagship N=20's)
+    corridor_codes = {name: StageCode(OCP(*getattr(presets, name)(c), c))
+                      for name in ("configuration_basic", "configuration_safe_horizon")}
 
     def timed(fn, *args):
         t = time.perf_counter()
@@ -1642,6 +1753,8 @@ def main():
     jobs = [("qp+mirror", cuda_qp.load_kernels, ()), ("rti", cuda_rti.load_rti, (stage_code,)),
             ("riccati_probe", riccati_probe.load_probe, ())]
     jobs += [(f"rti_flagship_N{n}", cuda_rti.load_rti, (code,)) for n, code in flagship_codes.items()]
+    jobs += [(f"rti_corridor_{name[len('configuration_'):]}", cuda_rti.load_rti, (code,))
+             for name, code in corridor_codes.items()]
     family_codes = {}
     for name, build in family_presets().items():
         c, m, mods = build()
@@ -1792,6 +1905,7 @@ def main():
     horizon_parallel_phase(dev, card, flagship_inputs)
     distributed_phase(dev, card, flagship_inputs["batch"])
     bridge_phase(card)
+    experiment_phases(dev, card)
 
     kernels = [
         dict(name="qp", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/qp_kernel.cu",

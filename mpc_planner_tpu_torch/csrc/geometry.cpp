@@ -352,10 +352,11 @@ int prm_search(const double* pos, const int64_t* tk, int64_t n,
         int32_t cofs = -1;
         if (M > 0) {
           cofs = (int32_t)cum_pool.size();
-          const double* cw = &cum_pool[labels[li].wind_ofs];
+          // by index: push_back below may move cum_pool's storage
+          const int64_t cw = labels[li].wind_ofs;
           const double* ew = &wind_pool[e.wind_ofs];
           for (int64_t m = 0; m < M; ++m) {
-            double w = cw[m] + ew[m];
+            double w = cum_pool[cw + m] + ew[m];
             cum_pool.push_back(w);
             double q = std::nearbyint(w / PI);
             key[m] = (int8_t)std::max(-127.0, std::min(127.0, q));

@@ -369,6 +369,11 @@ long long mpc_rti_shared_bytes(int N, int staged) {
   return mpc::rti_shared_floats<mpc::Stages>(N, staged != 0) * static_cast<long long>(sizeof(float));
 }
 
+// One-warp blocks of `bytes` of shared memory each that the current device
+// holds at once (residency.cuh): with mpc_rti_shared_bytes, how many waves a
+// batch takes.
+long long mpc_rti_resident_blocks(long long bytes) { return mpc::resident_blocks(bytes); }
+
 int mpc_rti_solve(const float* Z0, const float* P, const float* lbT, const float* ubT,
                   const float* wl, const float* wu, const float* wok, float* Z, float* lam_l,
                   float* lam_u, float* mu, float* scratch, int B, int N, int num_rti, int it0,

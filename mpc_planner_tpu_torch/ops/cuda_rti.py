@@ -33,6 +33,7 @@ _SIGNATURES = {
     "mpc_rti_dims": (_I, [ctypes.POINTER(_I)]),
     "mpc_rti_scratch_floats": (ctypes.c_longlong, [_I]),
     "mpc_rti_shared_bytes": (ctypes.c_longlong, [_I, _I]),
+    "mpc_rti_resident_blocks": (ctypes.c_longlong, [ctypes.c_longlong]),
     "mpc_rti_solve": (_I, _SOLVE_ARGS[:11] + [_P] + _SOLVE_ARGS[11:] + [_P]),
     "mpc_rti_linearize": (_I, _LINEARIZE_ARGS + [_P]),
 }
@@ -156,6 +157,19 @@ def solve_rti_cuda(
         raise RuntimeError(f"rti kernel launch failed: cudaError {err}")
     launch_counts["rti"] += 1
     return RTIResult(*outputs)
+
+
+def rti_residency(code: StageCode, B: int, N: int):
+    """(staged, resident blocks, waves) of a launch of K3 over B elements at
+    horizon N on the current device: the launcher stages an element's QP in
+    shared memory only where the whole batch is resident even so
+    (mpc_rti_solve), and a batch past the resident blocks runs in waves."""
+    lib = load_rti(code)
+    resident = lib.mpc_rti_resident_blocks(lib.mpc_rti_shared_bytes(N, 1))
+    staged = B <= resident
+    if not staged:
+        resident = lib.mpc_rti_resident_blocks(lib.mpc_rti_shared_bytes(N, 0))
+    return staged, resident, -(-B // resident) if resident else None
 
 
 def _solve_scalars(B: int, N: int, kw):

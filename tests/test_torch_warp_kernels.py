@@ -21,7 +21,10 @@ source.
   same float32 arithmetic up to libm's sin/cos).
 * The wrappers keep element-major [B, ...] inputs and outputs on the CPU.
 * mpc_planner_tpu_torch/csrc/geometry.cpp is byte-equal to the JAX
-  package's mpc_planner_tpu/native/src/geometry.cpp.
+  package's mpc_planner_tpu/native/src/geometry.cpp but for one repair
+  (REPAIRS): prm_search read the running winding through a pointer into
+  cum_pool while push_back could move that storage, so the PRM's classes
+  changed from process to process; the port reads it by index.
 """
 
 import os
@@ -284,6 +287,17 @@ def test_rti_wrappers_keep_element_major_layout(rti_case):
 
 
 # -- the native geometry source ---------------------------------------------------------
+# (the JAX package's lines, the port's): the only bytes in which the two copies differ
+REPAIRS = [(b"""          const double* cw = &cum_pool[labels[li].wind_ofs];
+          const double* ew = &wind_pool[e.wind_ofs];
+          for (int64_t m = 0; m < M; ++m) {
+            double w = cw[m] + ew[m];""", b"""          // by index: push_back below may move cum_pool's storage
+          const int64_t cw = labels[li].wind_ofs;
+          const double* ew = &wind_pool[e.wind_ofs];
+          for (int64_t m = 0; m < M; ++m) {
+            double w = cum_pool[cw + m] + ew[m];""")]
+
+
 def test_geometry_source_is_the_ports_own_and_byte_equal():
     port_root = os.path.dirname(os.path.abspath(mpc_planner_tpu_torch.__file__))
     jax_root = os.path.dirname(os.path.abspath(mpc_planner_tpu.__file__))
@@ -292,4 +306,7 @@ def test_geometry_source_is_the_ports_own_and_byte_equal():
         port = f.read()
     with open(os.path.join(jax_root, "native", "src", "geometry.cpp"), "rb") as f:
         ref = f.read()
+    for jax_lines, port_lines in REPAIRS:
+        assert ref.count(jax_lines) == 1
+        ref = ref.replace(jax_lines, port_lines)
     assert port == ref
