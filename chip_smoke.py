@@ -25,8 +25,9 @@ result then):
      generated for each OCP) for system_jackal("goal"), the flagship OCP,
      system_jackal("tmpc") (Gaussian), the bicycle, dingo's point mass,
      rosnavigation's T-MPC, the three SH-MPC OCPs, and configuration_basic
-     and configuration_safe_horizon at N=20 (phase 26's corridor rows); the
-     build times are printed;
+     and configuration_safe_horizon at N=20 (phase 26's corridor rows), and
+     the 11 rungs of the config ladder (phase 27; rungs whose code is that of
+     another OCP share its build); the build times are printed;
   3. K2 MIRROR kernel vs plain on seeded symmetric [B*(N+1), n, n]
      stacks, n = 5 and 7 (max |d| / max |H| < 1e-5);
   4. K1 QP kernel vs plain on QPs of system_jackal("goal") at B=1024,
@@ -162,7 +163,22 @@ result then):
      and 1024, n30_latency at B=1024 and 5 (warm iterations 6 and 4), both
      K3 only at 2 cycles x 2 repetitions; fused_rti_check at B=1024 (K3
      against K1 and the plain route: Z < 5e-3 relative, exit codes within
-     1%), each route timed.
+     1%), each route timed;
+ 27. the port's measuring programs at their full size: bench.run() (the
+     reference bench.py's workload: B=1024, N=20, 10 RTI, 8 chained warm
+     cycles x 10 repetitions; its JSON line printed, K3 only), then the 11
+     rungs of the config ladder through experiments/ladder_bench.py
+     (measure_rung, run_rung's body) at the module's defaults (B=1024, 10
+     RTI, 4 cycles x 15 repetitions), each gated on a finite Z, a
+     feasible count above 0, the asserted K3 route and K3's launches over the
+     rung: 1 for the cold solve, plus 1 where it escalates (solve_batch
+     re-solves failed or stalled elements at the full budget in a second
+     launch), plus cycles x (repetitions + 1) for the untimed and the timed
+     chains; K1 and K2 not at all. Each rung's share of K3's bound is
+     printed. Before that, the rungs whose OCP no earlier phase holds
+     (LADDER_HELD) have K3 held against the plain route at B=1024, the
+     ladder's batch, from perturbed converged plans (as phases 17-19: its
+     linearization < 1e-4, Z < 5e-3, exit codes within 1%, cold and warm).
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work (ops/cuda_qp.py::bound_ms over the operation
 and byte counts of qp_work, mirror_work, rti_work and probe_work), and the
@@ -213,6 +229,10 @@ CORRIDOR_SAMPLES_PER_CLASS = 250  # 4 classes x 250 + the free planner: B = 1001
 CORRIDOR_WIDE_STEPS = 40  # of the B = 1001 row: ~0.3 s a cycle, host guidance
 SWEEP_BATCHES = (128, BATCH)  # phase 26's batch_sweep: one resident wave and the flagship batch
 N30_BATCHES = (BATCH, ROBOT_BATCH)  # phase 26's n30_latency
+# Phase 27: ladder rungs whose OCP no earlier phase holds against the plain route, held at
+# the ladder's batch, cold and warm: contouring without obstacles, Gaussian with decomp rows,
+# and the two curvature-aware models on the curved scene
+LADDER_HELD = ("mpcc", "cc-static", "ca-mpc", "bicycle-ca")
 
 
 def check(cond, msg):
@@ -428,7 +448,7 @@ def check_linearization(phase, solver, stage_code, plain_solver, Zp, P):
                  B=(out.B, ref.B), c=(out.c, ref.c), Dh=(out.D[:, :, nvar:], ref.D[:, :, nvar:]),
                  lb=(out.lb * ref.mask_l, ref.lb * ref.mask_l),
                  ub=(out.ub * ref.mask_u, ref.ub * ref.mask_u))
-    errs = {k: rel_err(a, b) for k, (a, b) in pairs.items()}
+    errs = {k: rel_err(a, b) for k, (a, b) in pairs.items() if b.numel()}  # Dh is empty at nh=0
     print(f"phase {phase}: linearize_cuda vs SQPSolver._linearize, B={Zp.shape[0]}, "
           f"N={Zp.shape[1] - 1}: max|d|/max|ref| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     check(max(errs.values()) < 1e-4, f"K3 linearization disagrees with the unfused one: {errs}")
@@ -1695,6 +1715,84 @@ def experiment_phases(dev, card):
     sys.stdout.flush()
 
 
+def hold_ladder_rungs(dev, card):
+    """Phase 27, first part: K3 against the plain route on the rungs of
+    LADDER_HELD at the ladder's batch (B=1024: K3's unstaged layout, as the
+    timed chains run it), cold and then warm."""
+    import torch
+
+    from mpc_planner_tpu_torch.experiments import ladder_bench
+    from mpc_planner_tpu_torch.solver.ocp import OCP
+    from mpc_planner_tpu_torch.solver.sqp import SQPSolver
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    for name in LADDER_HELD:
+        fused, Zb, P, x0 = ladder_bench.rung_problem(name, BATCH, dev)  # K3 asserted
+        ocp = fused.ocp
+        c = ocp.cfg.replace(solver=dataclasses.replace(ocp.cfg.solver, qp_backend="torch",
+                                                       rti_fused="off"))
+        plain = SQPSolver(OCP(ocp.model, ocp.modules, c), device=dev)
+        Zs = fused.batch_impl(Zb, P, x0, RTI_ITERATIONS).Z  # converged plans, perturbed
+        Zp = Zs + 0.01 * torch.randn(Zs.shape, device=dev, generator=gen)
+        Zp[:, 0, ocp.nu:] = x0
+        print(f"phase 27: ladder rung {name}: nu={ocp.nu}, nx={ocp.nx}, nh={ocp.nh}, npar={ocp.npar}, "
+              f"N={ocp.N}, B={BATCH}; MIRROR {'x-only' if fused._mirror_x_only else 'full'}")
+        check_linearization(27, fused, fused._stage_code, plain, Zp, P)
+        check_rti(27, card, fused, fused._stage_code, Zp, P, x0, with_b1=False)
+
+
+def ladder_phase(dev, card):
+    """Phase 27: bench.run() and the 11 rungs of the config ladder at their
+    full size, on K3, the launches counted around each; before them, K3 held
+    against the plain route on the rungs of LADDER_HELD."""
+    import torch
+
+    from mpc_planner_tpu_torch import bench
+    from mpc_planner_tpu_torch.experiments import ladder_bench
+    from mpc_planner_tpu_torch.ops import cuda_qp
+    from mpc_planner_tpu_torch.ops.cuda_rti import warm_work
+
+    t_phase = time.perf_counter()
+    hold_ladder_rungs(dev, card)
+    cuda_qp.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bench.run(device=dev)
+    launches = dict(cuda_qp.launch_counts)
+    # the cold solve and the single call (each + 1 where it escalates), and the chains
+    chains = bench.CYCLES * (bench.REPS + 1)
+    check(out["metric"] == "tmpc_solves_per_sec_per_gpu" and out["value"] > 0
+          and 2 + chains <= launches["rti"] <= 4 + chains and launches["qp"] == 0
+          and launches["mirror"] == 0, f"phase 27: bench {out}, launches {launches}")
+    print(f"phase 27: bench {json.dumps(out)} [{card}]; {time.perf_counter() - t0:.1f} s, "
+          f"kernel launches {launches}")
+    sys.stdout.flush()
+
+    rows = []
+    reps, cycles = ladder_bench.REPS, ladder_bench.CYCLES
+    for name, *_ in ladder_bench.make_rungs():
+        cuda_qp.reset_launch_counts()
+        row, solver, last = ladder_bench.measure_rung(name, BATCH, RTI_ITERATIONS, cycles, reps,
+                                                      dev)
+        launches = dict(cuda_qp.launch_counts)
+        cold = launches["rti"] - cycles * (reps + 1)
+        feasible = int(row["feasible"].split("/")[0])
+        check(bool(torch.isfinite(last.Z).all()), f"phase 27: rung {name}: non-finite Z")
+        check(feasible > 0, f"phase 27: rung {name}: no feasible element")
+        check(cold in (1, 2) and launches["qp"] == 0 and launches["mirror"] == 0,
+              f"phase 27: rung {name}: kernel launches {launches}, expected 1 (+1 where the cold "
+              f"solve escalates) + {cycles} x ({reps} + 1) of K3 only")
+        work = batch_work(warm_work(solver, RTI_ITERATIONS), BATCH)
+        rows.append(row)
+        print(f"phase 27: ladder {json.dumps(row)}: {bound_text(row['batch_ms_mean'], work)} per "
+              f"warm cycle; K3 launches {launches['rti']} = {cold} cold"
+              f"{' (escalated)' if cold == 2 else ''} + {cycles} x ({reps} + 1) [{card}]")
+        sys.stdout.flush()
+    print(f"phase 27: the ladder at B={BATCH}: " + ", ".join(
+        f"{r['rung']} {r['batch_ms_mean']} ms ({r['feasible']})" for r in rows)
+        + f"; the phase ran in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    sys.stdout.flush()
+
+
 def main():
     import torch
 
@@ -1704,7 +1802,7 @@ def main():
         return 2
 
     from mpc_planner_tpu_torch import presets
-    from mpc_planner_tpu_torch.experiments import riccati_probe
+    from mpc_planner_tpu_torch.experiments import ladder_bench, riccati_probe
     from mpc_planner_tpu_torch.ops import cuda_qp, cuda_rti
     from mpc_planner_tpu_torch.ops.stage_codegen import StageCode
     from mpc_planner_tpu_torch.ops.jacobi_eigh import mirror_unpacked
@@ -1763,6 +1861,8 @@ def main():
     for name, build in scenario_presets().items():
         c, m, mods = build()
         scenario_codes[name] = StageCode(OCP(m, mods, c))
+    for name, c, m, mods, *_ in ladder_bench.make_rungs():  # phase 27
+        jobs.append((f"rti_ladder_{name}", cuda_rti.load_rti, (StageCode(OCP(m, mods, c)),)))
     jobs += [(f"rti_{name}", cuda_rti.load_rti, (code,))
              for name, code in {**family_codes, **scenario_codes}.items()]
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -1906,6 +2006,7 @@ def main():
     distributed_phase(dev, card, flagship_inputs["batch"])
     bridge_phase(card)
     experiment_phases(dev, card)
+    ladder_phase(dev, card)
 
     kernels = [
         dict(name="qp", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/qp_kernel.cu",

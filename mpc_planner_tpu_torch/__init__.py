@@ -33,10 +33,15 @@ def default_device(device=None) -> torch.device:
 
 from mpc_planner_tpu_torch.parameters import ParameterRegistry  # noqa: E402
 from mpc_planner_tpu_torch.types import (  # noqa: E402
+    Disc,
+    DynamicObstacle,
+    Halfspace,
     ModuleData,
     PlannerOutput,
+    Prediction,
     PredictionType,
     RealTimeData,
+    ReferencePath,
     State,
     Trajectory,
 )
@@ -46,6 +51,11 @@ __all__ = [
     "default_device",
     "Config",
     "default_config",
+    "Disc",
+    "Halfspace",
+    "Prediction",
+    "DynamicObstacle",
+    "ReferencePath",
     "ModuleData",
     "PlannerOutput",
     "PredictionType",

@@ -20,9 +20,8 @@ from mpc_planner_tpu_torch.experiments.common import (
     device_parser,
     perturbed_batch,
     resolve_device,
-    timed,
+    timed_chains,
     warm_carry,
-    warm_chain,
 )
 
 SIZES = (128, 256, 512, 1024, 2048)
@@ -61,11 +60,7 @@ def sweep(sizes=SIZES, rti=RTI, cycles=CYCLES, reps=REPS, device=None, N=20):
     for B in sizes:
         Z0b, Pb, xb = perturbed_batch(rng, Z0, P, xinit, B, model.nu, device)
         warm0 = warm_carry(solver.solve_batch(Z0b, Pb, xb, num_iterations=rti))
-        out = warm_chain(solver, warm0, Pb, xb, rti, cycles)  # first loads
-        ts = []
-        for _ in range(reps):
-            out, seconds = timed(lambda: warm_chain(solver, warm0, Pb, xb, rti, cycles), device)
-            ts.append(seconds / cycles)
+        ts, out = timed_chains(solver, warm0, Pb, xb, rti, cycles, reps, device)
         mean, p99 = float(np.mean(ts)), float(np.percentile(ts, 99))
         res_text = residency_text(solver, B)
         rows.append((B, mean * 1e3, p99 * 1e3, B / mean, res_text))

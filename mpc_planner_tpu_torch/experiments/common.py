@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import subprocess
 import time
 
 import numpy as np
@@ -49,6 +50,15 @@ def timed(fn, device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def card_text(device) -> str:
+    """The card's name and power limit as nvidia-smi prints them, or "cpu"."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
 
 
 def check_route(solver, fused: bool, backend: str = "cuda") -> None:
@@ -140,6 +150,20 @@ def warm_chain(solver, warm0, Pb, xb, rti: int, cycles: int):
         res = solver.batch_impl(carry[0], Pb, xb, rti, warm0=carry[1:])
         carry = warm_carry(res)
     return carry, res
+
+
+def timed_chains(solver, warm0, Pb, xb, rti: int, cycles: int, reps: int, device):
+    """The reference's steady-state measurement (bench.py, ladder_bench.py):
+    one untimed chain of `cycles` warm cycles from warm0 (the reference's
+    compiling call), then `reps` timed chains from the same warm0. Returns
+    (seconds per cycle of each timed chain as an array, the last chain's
+    warm_chain result)."""
+    out = warm_chain(solver, warm0, Pb, xb, rti, cycles)
+    times = []
+    for _ in range(reps):
+        out, seconds = timed(lambda: warm_chain(solver, warm0, Pb, xb, rti, cycles), device)
+        times.append(seconds / cycles)
+    return np.asarray(times), out
 
 
 def warm_carry(res):

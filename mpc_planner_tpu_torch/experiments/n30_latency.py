@@ -29,9 +29,8 @@ from mpc_planner_tpu_torch.experiments.common import (
     device_parser,
     perturbed_batch,
     resolve_device,
-    timed,
+    timed_chains,
     warm_carry,
-    warm_chain,
 )
 
 BATCHES = (1024, 128, 5)
@@ -46,15 +45,10 @@ def run_chain(solver, Z0b, Pb, xb, rti, cycles, reps, device):
 
     res = solver.solve_batch(Z0b, Pb, xb, num_iterations=rti)
     feas0 = int((res.exit_code == EXIT_SUCCESS).sum())
-    warm0 = warm_carry(res)
-    out = warm_chain(solver, warm0, Pb, xb, rti, cycles)  # first loads
-    times = []
-    for _ in range(reps):
-        out, seconds = timed(lambda: warm_chain(solver, warm0, Pb, xb, rti, cycles), device)
-        times.append(seconds / cycles)
-    (Z_final, _, _, _), last = out
+    times, ((Z_final, _, _, _), last) = timed_chains(solver, warm_carry(res), Pb, xb, rti, cycles,
+                                                     reps, device)
     feas_steady = int((last.exit_code == EXIT_SUCCESS).sum())
-    return np.asarray(times), feas0, feas_steady, Z_final.cpu().numpy()
+    return times, feas0, feas_steady, Z_final.cpu().numpy()
 
 
 def latency_rows(batches=BATCHES, warm_iters=(6, 5, 4), horizon=30, rti=10, cycles=8, reps=8,

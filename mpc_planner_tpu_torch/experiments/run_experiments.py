@@ -26,6 +26,8 @@ import subprocess
 import sys
 import time
 
+from mpc_planner_tpu_torch.experiments.common import card_text
+
 CORRIDOR = ("corridor_benchmark", "--json", "--seeds", "3")
 RUNS = (
     ("corridor_table", CORRIDOR + ("--config", "all", "--peds", "4", "8", "12")),
@@ -51,8 +53,7 @@ def main(argv=None):
     ap.add_argument("--only", nargs="*", default=None, help="run only these NAMEs")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card_text("cuda")
     print(card, flush=True)
     failed = []
     for name, (experiment, *flags) in RUNS:

@@ -72,6 +72,10 @@ class DynamicsModel:
             return self.nu + list(self.states).index(name)
         raise KeyError(f"'{name}' is neither a state nor an input of {type(self).__name__}")
 
+    def state_index(self, name: str) -> int:
+        """Index of a state within x."""
+        return list(self.states).index(name)
+
     def get(self, z, name: str):
         return z[..., self.index(name)]
 
@@ -102,9 +106,27 @@ class DynamicsModel:
         x_int = rk4_step(self.continuous_model, x[..., :n_int], u, dt, num_steps)
         return self.discrete_update(z, x_int, p, ocp)
 
+    def continuous_model_integrated(self, x_full, x_int, u):
+        """The continuous model of the integrated sub-state x_int (the first
+        `nx_integrate` states of x_full): what RK4 in `discrete_dynamics`
+        integrates. Every model of the reference overrides it with this same
+        body, so here the models inherit it."""
+        return self.continuous_model(x_int, u)
+
     def discrete_update(self, z, x_int, p, ocp):
         """Append/post-process non-integrated states (default: identity)."""
         return x_int
+
+    def xinit_indices(self) -> Sequence[int]:
+        """Indices of the initialized states within z (ref solver_model.py
+        get_xinit): all of them."""
+        return list(range(self.nu, self.nvar))
+
+    def __hash__(self):
+        return hash((type(self).__name__, tuple(self.states), tuple(self.inputs)))
+
+    def __eq__(self, other):
+        return type(self) is type(other)
 
 
 class SecondOrderUnicycleModel(DynamicsModel):

@@ -255,3 +255,12 @@ def rti_work(code: StageCode, N: int, num_iterations: int, it0: int, warm_iters:
     floats = (nz + (N + 1) * ocp.npar + 2 * rows + (2 * rows + 1 if warm else 0)
               + nz + 2 * rows + 1)
     return flops, 4 * floats
+
+
+def warm_work(solver, rti: int):
+    """(flops, bytes) of ONE element's warm solve in K3 on `solver` (an
+    SQPSolver on the fused route): `rti` iterations, each QP at the
+    solver's warm count, warm duals in (as every cycle of a warm chain)."""
+    wi = solver.warm_qp_iters
+    return rti_work(solver._stage_code, solver.ocp.N, rti, wi, wi, warm=True,
+                    mirror_x_only=solver._mirror_x_only)

@@ -1,16 +1,24 @@
-"""Host-side data types of one control cycle.
+"""Data types of one control cycle.
 
 Counterpart of mpc_planner_tpu/types.py (ref mpc_planner_types/
-data_types.h and realtime_data.h). Only the types the planner's main
-path uses are here; all of them are plain Python/numpy containers.
+data_types.h and realtime_data.h). The host containers of the planner's
+main path (State, RealTimeData, ModuleData, ...) are plain Python/numpy;
+the fixed-shape obstacle and path types (Disc, Halfspace, Prediction,
+DynamicObstacle, ReferencePath, FixedSizeTrajectory) are frozen dataclasses
+of tensors with the reference's field names and shapes. No module reads
+the latter, as none of the reference's does: the modules take obstacles
+from `RealTimeData.obstacle_block` and static halfspaces from
+`ModuleData.static_obstacles`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 
 class PredictionType(enum.IntEnum):
@@ -20,6 +28,83 @@ class PredictionType(enum.IntEnum):
     DETERMINISTIC = 1
     GAUSSIAN = 2
     NONGAUSSIAN = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class Disc:
+    """Robot collision disc (ref data_types.h Disc): offset along the body
+    x-axis from the robot center + radius."""
+
+    offset: torch.Tensor  # [n_discs]
+    radius: torch.Tensor  # [n_discs]
+
+    def position(self, robot_pos: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+        """Disc centers for a robot at `robot_pos` with heading `psi`.
+
+        robot_pos [..., 2], psi [...] -> [..., n_discs, 2].
+        """
+        direction = torch.stack([torch.cos(psi), torch.sin(psi)], dim=-1)  # [..., 2]
+        return robot_pos[..., None, :] + self.offset[:, None] * direction[..., None, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class Halfspace:
+    """A x <= b halfspaces (ref data_types.h Halfspace), struct-of-arrays."""
+
+    A: torch.Tensor  # [..., 2]
+    b: torch.Tensor  # [...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Prediction:
+    """Obstacle motion predictions over the horizon, all modes batched
+    (ref data_types.h Prediction{modes, probabilities}); fixed shape
+    [n_obstacles, n_modes, N, ...]."""
+
+    position: torch.Tensor  # [M, modes, N, 2]
+    angle: torch.Tensor  # [M, modes, N]
+    major_radius: torch.Tensor  # [M, modes, N] (std dev along major axis for GAUSSIAN)
+    minor_radius: torch.Tensor  # [M, modes, N]
+    probabilities: torch.Tensor  # [M, modes]
+    type: torch.Tensor  # [M] int32 PredictionType per obstacle
+
+    @property
+    def n_modes(self) -> int:
+        return self.position.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicObstacle:
+    """Current obstacle states (ref data_types.h DynamicObstacle), padded to
+    max_obstacles. `index` < 0 marks a dummy."""
+
+    index: torch.Tensor  # [M] int32
+    position: torch.Tensor  # [M, 2]
+    angle: torch.Tensor  # [M]
+    radius: torch.Tensor  # [M]
+    prediction: Prediction
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferencePath:
+    """Waypoints of the 2D reference path (+ per-point velocity), padded to
+    a static capacity with a `valid` mask (ref data_types.h
+    ReferencePath{x, y, psi, v, s})."""
+
+    x: torch.Tensor  # [P]
+    y: torch.Tensor  # [P]
+    psi: torch.Tensor  # [P]
+    v: torch.Tensor  # [P]
+    s: torch.Tensor  # [P]
+    valid: torch.Tensor  # [P] bool
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSizeTrajectory:
+    """Positions with a static capacity (ref data_types.h FixedSizeTrajectory)."""
+
+    positions: torch.Tensor  # [K, 2]
+    valid: torch.Tensor  # [K] bool
 
 
 class Trajectory:
@@ -131,3 +216,32 @@ class ModuleData:
         self.pblock = None  # ParameterBlock (main fill)
         self.xinit: Optional[np.ndarray] = None  # [nx]
         self.num_iterations: int = 10
+
+
+def dummy_obstacles(max_obstacles: int, n_modes: int, N: int, far: float = 100.0,
+                    device=None) -> DynamicObstacle:
+    """All-dummy obstacle block at +`far` m (ref data_preparation.cpp:49-56):
+    index -1, every mode's prediction at `far`, the probabilities one-hot on
+    mode 0, type DETERMINISTIC. On the card unless `device` says otherwise."""
+    from mpc_planner_tpu_torch import default_device
+
+    M = max_obstacles
+    f32 = dict(dtype=torch.float32, device=default_device(device))
+    i32 = dict(dtype=torch.int32, device=f32["device"])
+    pos = torch.full((M, 2), far, **f32)
+    probabilities = torch.zeros((M, n_modes), **f32)
+    probabilities[:, 0] = 1.0
+    return DynamicObstacle(
+        index=torch.full((M,), -1, **i32),
+        position=pos,
+        angle=torch.zeros((M,), **f32),
+        radius=torch.zeros((M,), **f32),
+        prediction=Prediction(
+            position=pos[:, None, None, :].expand(M, n_modes, N, 2).clone(),
+            angle=torch.zeros((M, n_modes, N), **f32),
+            major_radius=torch.zeros((M, n_modes, N), **f32),
+            minor_radius=torch.zeros((M, n_modes, N), **f32),
+            probabilities=probabilities,
+            type=torch.full((M,), int(PredictionType.DETERMINISTIC), **i32),
+        ),
+    )

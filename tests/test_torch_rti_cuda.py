@@ -7,9 +7,10 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_rti_cuda.py
 
 Shapes: system_jackal("goal") (N=30, nh=12), goal tracking with nh=0,
-and the T-MPC++ flagship OCP (configuration_tmpc at N=20, nh=24: its
+the T-MPC++ flagship OCP (configuration_tmpc at N=20, nh=24: its
 generated stage code blends 5 spline segments, with sigmoid, where,
-clamp and remainder).
+clamp and remainder), and two rungs of the config ladder
+(experiments/ladder_bench.py: cc-static and bicycle-ca, N=20).
 
 Tolerances: K3 5e-3 of max |Z| (the reference's fused-vs-XLA bound,
 tests/test_pallas_rti.py:96-98) and at most one element of the batch with
@@ -244,6 +245,32 @@ def test_rti_kernel_new_ocps_match_plain(new_ocp, warm):
 
 def test_linearize_kernel_new_ocps_match_unfused(new_ocp):
     test_linearize_kernel_matches_unfused(new_ocp)
+
+
+@pytest.fixture(scope="module", params=["cc-static", "bicycle-ca"])
+def ladder_rung(request, device):
+    """A rung of the config ladder on its default route (K3, asserted by
+    rung_problem) and a batch of perturbed converged plans of its instance:
+    cc-static (Gaussian chance constraints with decomp polytopes on one OCP)
+    and bicycle-ca (the curvature-aware bicycle on the curved scene)."""
+    from mpc_planner_tpu_torch.experiments.ladder_bench import rung_problem
+
+    solver, Z0, P, x0 = rung_problem(request.param, B, device)
+    assert solver.rti_fused and solver.qp_backend == "cuda"
+    nu = solver.ocp.nu
+    g = torch.Generator(device=device).manual_seed(7)
+    Zs = solver.batch_impl(Z0, P, x0, 10).Z
+    Zp = Zs + 0.01 * torch.randn(Zs.shape, device=device, generator=g)
+    Zp[:, 0, nu:] = x0
+    kw = dict(lb_template=solver._lb_template, ub_template=solver._ub_template,
+              num_iterations=10, warm_iters=solver.warm_qp_iters, mu0=solver.mu0,
+              sigma_fixed=solver.warm_sigma, lm=solver.lm, mirror_x_only=solver._mirror_x_only)
+    return dict(solver=solver, ocp=solver.ocp, Z0=Zp, P=P, x0=x0, kw=kw)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_rti_kernel_ladder_rungs_match_plain(ladder_rung, warm):
+    test_rti_kernel_matches_plain(ladder_rung, warm)
 
 
 def test_rti_wrapper_rejects_bad_input(jackal):

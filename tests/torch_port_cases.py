@@ -709,3 +709,55 @@ def advance(side):
     for name in planner.model.states:
         state.set(name, planner.get_solution(1, name))
     side["data"].ego_position = state.get_position()
+
+
+# -- the reference's root programs (bench.py, experiments/ladder_bench.py) ------------------
+def reference_program(path: str, name: str):
+    """A root program of the reference, loaded from its file (relative to
+    the repository). experiments/ladder_bench.py turns on a persistent
+    compilation cache under HOME when it is loaded; that setting is put
+    back, so the test process compiles as before."""
+    import importlib.util
+    import os
+
+    import jax
+
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, path))
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    return module
+
+
+def check_ladder_rung_cold_solve(name: str, batch: int = 4, rti: int = 2, rel: float = 5e-3):
+    """One ladder rung's cold solve_batch (escalation included) on the
+    port's plain route against the reference's, on the same perturbed batch
+    (both ladders draw default_rng(0), N(0, 0.05) on the states): Z within
+    `rel` of max |Z|, exit codes equal."""
+    import jax.numpy as jnp
+
+    from mpc_planner_tpu_torch.experiments.ladder_bench import rung_problem
+
+    ref_ladder = reference_program("experiments/ladder_bench.py", "reference_ladder_bench")
+    solver, Z0b, Pb, xb = rung_problem(name, batch, torch.device("cpu"))
+    assert solver.qp_backend == "torch"  # the plain route on the CPU
+    _, cfg, model, mgr, state, data = next(r for r in ref_ladder.make_rungs() if r[0] == name)
+    ref_solver, Z0, P, xinit = ref_ladder.build_solver(cfg, model, mgr, state, data)
+    rng = np.random.default_rng(0)
+    rZ0b = np.tile(Z0[None], (batch, 1, 1)).astype(np.float32)
+    rZ0b[:, 1:, model.nu:] += rng.normal(0, 0.05, rZ0b[:, 1:, model.nu:].shape).astype(np.float32)
+    np.testing.assert_array_equal(Z0b.numpy(), rZ0b)  # the same draws
+    ref = ref_solver.solve_batch(
+        jnp.asarray(rZ0b), jnp.asarray(np.tile(P[None], (batch, 1, 1)), jnp.float32),
+        jnp.asarray(np.tile(xinit[None], (batch, 1)), jnp.float32), num_iterations=rti)
+    out = solver.solve_batch(Z0b, Pb, xb, num_iterations=rti)
+    Z, rZ = out.Z.numpy().astype(np.float64), np.asarray(ref.Z, np.float64)
+    assert np.isfinite(Z).all()
+    assert np.abs(Z - rZ).max() / np.abs(rZ).max() < rel
+    np.testing.assert_array_equal(out.exit_code.numpy(), np.asarray(ref.exit_code))
