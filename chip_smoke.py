@@ -62,8 +62,11 @@ result then):
      count is taken here;
  10. SQPSolver.solve_batch through the fused route at B=1024: one cold
      solve and 8 chained warm cycles;
- 11. K4, the Riccati probe: each thread mapping vs its plain version
-     (< 1e-3) and timed at 5, 1024 and 131,072 elements;
+ 11. K4, the Riccati probe: each of its six thread mappings (among them
+     "staged" and "team", stage data staged into shared memory by
+     cp.async) vs its plain version (< 1e-3) and timed at N=20 for 5, 1024
+     and 131,072 elements and at N=30 for 5; the kernels line carries
+     "single", "staged" and "team" at N=20, E=1024, each with its launches;
  12. the flagship's build: K3 for configuration_tmpc at N=20 and N=30
      (build times; whether they share one build), the native geometry
      library, and the OCP's nh, nrows and npar;
@@ -621,28 +624,39 @@ def fused_phases(dev, card, stage_code, Z0, P, x0, Zp, plain_solver, make_planne
 
 
 def probe_phase(card, dev):
-    """Phase 11: K4, every mapping held against plain and timed. Returns
-    the record of the "single" mapping at 1024 elements (K1's mapping at
-    K1's batch) and the launch count of the probe's run."""
+    """Phase 11: K4, every mapping held against plain and timed. Returns the
+    kernels line's records of the mappings "single" (as in earlier runs),
+    "staged" and "team" at N=20 and 1024 elements (K1's mapping, and the two
+    on staged data, at K1's batch), each with its launches in the probe's run."""
     from mpc_planner_tpu_torch.experiments import riccati_probe
     from mpc_planner_tpu_torch.ops import cuda_qp
 
+    t_phase = time.perf_counter()
     cuda_qp.reset_launch_counts()
+    riccati_probe.mapping_launches.update(dict.fromkeys(riccati_probe.MAPPINGS, 0))
     rows = riccati_probe.run(dev)
-    launches = cuda_qp.launch_counts["riccati_probe"]
+    launches = dict(riccati_probe.mapping_launches)
+    check(cuda_qp.launch_counts["riccati_probe"] == sum(launches.values()),
+          "the probe's launch counts disagree")
     for r in rows:
-        print(f"phase 11: riccati probe E={r['elements']} {r['mapping']}: max|d| "
-              f"{r['max_abs_err']:.2e}, {r['ms'] * 1e3:.1f} us/launch, {r['ns_per_step']:.1f} "
+        print(f"phase 11: riccati probe N={r['n_stages']} E={r['elements']} {r['mapping']}: max|d| "
+              f"{r['max_abs_err']:.2e}, {r['ms'] * 1e3:.2f} us/launch, {r['ns_per_step']:.1f} "
               f"ns/stage-step/chain ({r['ns_per_step_element']:.4f} ns per element), bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['ms']:.2f}% of it reached); plain {r['plain_ms']:.2f} ms "
-              f"[{card}]")
-    check(launches > 0, "the probe launched no kernel")
-    first = next(r for r in rows if r["mapping"] == "single" and r["elements"] == 1024)
+              f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']} "
+              f"({100 * r['share']:.2f}% of it reached); plain {r['plain_ms']:.2f} ms [{card}]")
+    for mapping, n in launches.items():
+        check(n > 0, f"the probe launched no {mapping} kernel")
+    records = {}
+    for mapping in ("single", "staged", "team"):
+        r = next(r for r in rows if r["mapping"] == mapping and r["n_stages"] == riccati_probe.N_STAGES
+                 and r["elements"] == 1024)
+        records[mapping] = dict(launches=launches[mapping], max_abs_err=max(
+            x["max_abs_err"] for x in rows if x["mapping"] == mapping), ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+    print(f"phase 11: the probe ran in {time.perf_counter() - t_phase:.1f} s; launches {launches} "
+          f"[{card}]")
     sys.stdout.flush()
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=first["ms"],
-                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-                library_ms=None), launches
+    return records
 
 
 def flagship_phases(dev, card, codes, build_s):
@@ -1997,7 +2011,7 @@ def main():
     record["rti"], rti_launches = fused_phases(
         dev, card, stage_code, Z0, P, x0, Zp, plain_solver, make_planner, closed_loop,
         Z_torch_first)
-    record["riccati_probe"], probe_launches = probe_phase(card, dev)
+    probe = probe_phase(card, dev)
     flagship, flagship_inputs = flagship_phases(dev, card, flagship_codes, build_s)
     families = remaining_phases(dev, card, family_codes, build_s)
     families.update(scenario_phases(dev, card, scenario_codes, build_s))
@@ -2018,10 +2032,10 @@ def main():
         dict(name="rti", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/rti_kernel.cuh",
              replaces="mpc_planner_tpu/ops/pallas_rti.py:205", launches=rti_launches,
              **record["rti"]),
-        dict(name="riccati_probe", route="cuda",
-             source="mpc_planner_tpu_torch/ops/csrc/riccati_probe.cu",
-             replaces="experiments/riccati_ilp_probe.py:278", launches=probe_launches,
-             **record["riccati_probe"]),
+        *(dict(name="riccati_probe" if mapping == "single" else f"riccati_probe_{mapping}",
+               route="cuda", source="mpc_planner_tpu_torch/ops/csrc/riccati_probe.cu",
+               replaces="experiments/riccati_ilp_probe.py:278", **entry)
+          for mapping, entry in probe.items()),
         dict(name="qp_flagship", route="cuda", source="mpc_planner_tpu_torch/ops/csrc/qp_kernel.cu",
              replaces="mpc_planner_tpu/ops/pallas_qp.py:621", **flagship["qp"]),
         dict(name="mirror_flagship", route="cuda",

@@ -1,14 +1,15 @@
 // K4: a probe of the backward Riccati factorization on Hopper (N stages,
 // nu = 2, nx = 5, `sweeps` passes over the horizon with P carried), on
-// synthetic stage data, in four thread mappings.
+// synthetic stage data, in six thread mappings.
 //
 // Replaces the layout probes of experiments/riccati_ilp_probe.py (main :278,
 // kernels _factor_chain :72-94, "single", "interleaved", "wide"/"packed").
 // The TPU question was how to fill vector lanes and hide the recursion's
 // latency; Hopper's is how many threads one element's recursion should
-// use. K1 (qp_kernel.cu) gives each element a warp, spreads the row and
-// stage passes over its lanes and keeps this recursion serial. The four
-// answers timed here:
+// use, and where its stage data should sit. K1 (qp_kernel.cu) gives each
+// element a warp, spreads the row and stage passes over its lanes and keeps
+// this recursion serial, redundant on every lane, out of shared memory
+// (ip_solve.cuh). The answers timed here:
 //   (a) one thread per element: K1's first mapping ("single");
 //   (b) two elements per thread, their recursions interleaved in one loop
 //       body: independent chains in one instruction stream ("interleaved",
@@ -17,23 +18,47 @@
 //       rows by __shfl_sync ("wide"/"packed": more threads, shorter chain
 //       per thread);
 //   (d) one warp per element, the recursion run redundantly on all 32
-//       lanes (one stream of operations, broadcast loads, lane 0 stores):
-//       what K1 does with its serial part today ("warp"). It shows what
-//       that part costs inside K1, and against (c) what lanes that share
-//       the products would save.
+//       lanes (one stream of operations, broadcast loads, lane 0 stores)
+//       ("warp").
+// (a)-(d) read every stage's data from global memory at every step. The
+// two designed for the card stage an element's H, A and B (6.9 KB at N=20,
+// 10.3 KB at N=30) into shared memory first, by asynchronous copies
+// (cp.async, 4 bytes a copy: the element-innermost rows are 4-byte
+// aligned only, which rules out cp.async.bulk and TMA, and a TMA box would
+// keep the elements innermost in shared memory, where a warp reading one
+// element's matrix hits 4 banks), completed by cp.async.wait_group and a
+// block barrier; the 8 sweeps then read shared memory only. A block of 8
+// warps stages 8 consecutive elements, so a warp's copy covers 4 rows x 8
+// elements: every 32-byte sector it reads is whole, and the element-major
+// rows in shared memory, padded to 4 mod 32 floats, take 32 distinct banks.
+// 55 KB a block at N=20 and 82 KB at N=30 (team: + 3.2 KB of scratch):
+// above 48 KB, so each launch sets cudaFuncAttributeMaxDynamicSharedMemorySize
+// and fails if it is refused.
+//   (e) "staged": (d) on the staged data, K1's own pattern (ip_solve.cuh's
+//       factorization), the like-for-like baseline;
+//   (f) "team": the step shared over the warp's lanes (riccati_step.cuh):
+//       P A and P B, then R-hat, S-hat and A'PA, then the new P, one entry
+//       a lane, a __syncwarp between the phases.
 // Every step does what K1's factorization does: R-hat = H_uu + B'PB + 1e-7 I,
 // its closed-form 2x2 inverse, K = -R-hat^-1 S-hat, P <- sym(H_xx + A'PA +
 // S-hat'K). Arrays are batch-innermost: H [N+1, 7, 7, E], A [N, 5, 5, E],
 // B [N, 5, 2, E] -> P [5, 5, E]. What bounds it: the dependent chain of
-// sweeps x N steps per element, i.e. latency, not bytes or FLOPs.
+// sweeps x N steps per element, i.e. latency, not bytes or FLOPs (1,007
+// FLOPs a step against 6.9 KB read once for 160 steps). Tensor cores do not
+// apply: the rule is float32 with TF32 off (reduced precision breaks the
+// Riccati's positive definiteness, mpc_planner_tpu/solver/sqp.py:421-425),
+// and the 5x5 and 2x5 products are below the smallest mma tile.
 
 #include <cuda_runtime.h>
+
+#include "riccati_step.cuh"
 
 namespace {
 
 constexpr int NU = 2, NX = 5, NV = NU + NX;
 constexpr int kThreads = 32;  // one warp per block, as K1
 constexpr int kGroup = 8;     // lanes per element in mapping (c)
+constexpr int kElems = 8;     // elements (warps) per block in mappings (e), (f)
 
 struct Chain {
   const float *H, *A, *B;
@@ -49,8 +74,10 @@ struct Chain {
   }
 };
 
-// One backward step for element e at stage k: P <- step(P).
-__device__ __forceinline__ void step(const Chain& c, int k, int e, float (&P)[NX][NX]) {
+// One backward step for element e at stage k: P <- step(P). `View` is
+// Chain (global memory) or StagedView (one element's staged data).
+template <class View>
+__device__ __forceinline__ void step(const View& c, int k, int e, float (&P)[NX][NX]) {
   float Ak[NX][NX], Bk[NX][NU], PA[NX][NX], PB[NX][NU];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
@@ -121,7 +148,8 @@ __device__ __forceinline__ void step(const Chain& c, int k, int e, float (&P)[NX
     for (int j = 0; j < NX; ++j) P[i][j] = 0.5f * (Pn[i][j] + Pn[j][i]);
 }
 
-__device__ __forceinline__ void load_terminal(const Chain& c, int e, float (&P)[NX][NX]) {
+template <class View>
+__device__ __forceinline__ void load_terminal(const View& c, int e, float (&P)[NX][NX]) {
 #pragma unroll
   for (int i = 0; i < NX; ++i)
 #pragma unroll
@@ -286,16 +314,161 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(Chain c, float* out, int
   if (threadIdx.x == 0) store(out, c.E, e, P);
 }
 
+// Floats from one element's staged data to the next: the data padded to
+// 4 mod 32, so that the 32 lanes of a copy (8 elements x 4 rows) write 32
+// distinct banks.
+int staged_stride(int N) {
+  const int f = mpc::riccati::stage_floats(N);
+  return f + (36 - f % 32) % 32;
+}
+
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Entries [0, per_stage * stages) of the element-innermost array X (stage
+// after stage, each stage's matrix row-major), elements e0 .. e0 + 7, to
+// smem[g * stride + staged offset] (thread t: element t % 8, entry t / 8;
+// entry r is entry r % per_stage of stage r / per_stage, at `offset` in
+// that stage's block).
+__device__ __forceinline__ void copy_rows(const float* X, int per_stage, int stages, int offset,
+                                          int E, int e0, float* smem, int stride) {
+  using mpc::riccati::kStageFloats;
+  for (int t = threadIdx.x; t < per_stage * stages * kElems; t += blockDim.x) {
+    const int g = t % kElems, r = t / kElems;
+    if (e0 + g < E)
+      copy_async4(smem + g * stride + (r / per_stage) * kStageFloats + offset + r % per_stage,
+                  X + static_cast<long long>(r) * E + e0 + g);
+  }
+}
+
+// The block's 8 elements' stage data into shared memory, element-major in
+// riccati_step.cuh's order, then wait for every copy of the block.
+__device__ __forceinline__ void stage_block(const Chain& c, int e0, float* smem, int stride) {
+  using namespace mpc::riccati;
+  copy_rows(c.H, NV * NV, c.N + 1, 0, c.E, e0, smem, stride);
+  copy_rows(c.A, NX * NX, c.N, kOffA, c.E, e0, smem, stride);
+  copy_rows(c.B, NX * NU, c.N, kOffB, c.E, e0, smem, stride);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Chain's accessors on one element's staged data (the element index is
+// ignored).
+struct StagedView {
+  const float* p;
+  int N;
+  __device__ __forceinline__ float h(int k, int i, int j, int) const {
+    return p[mpc::riccati::staged_h(k, i * NV + j)];
+  }
+  __device__ __forceinline__ float a(int k, int i, int j, int) const {
+    return p[mpc::riccati::staged_a(k, i * NX + j)];
+  }
+  __device__ __forceinline__ float b(int k, int i, int j, int) const {
+    return p[mpc::riccati::staged_b(k, i * NU + j)];
+  }
+};
+
+// (e) one warp per element on its staged data, the recursion redundant on
+// every lane. A warp past E returns after the block's barrier, whole.
+__global__ void __launch_bounds__(kElems * kThreads)
+    staged_kernel(Chain c, float* out, int sweeps, int stride) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / kThreads, e = blockIdx.x * kElems + warp;
+  stage_block(c, blockIdx.x * kElems, smem, stride);
+  if (e >= c.E) return;
+  const StagedView v{smem + warp * stride, c.N};
+  float P[NX][NX];
+  load_terminal(v, e, P);
+  for (int s = 0; s < sweeps; ++s)
+    for (int k = c.N - 1; k >= 0; --k) step(v, k, e, P);
+  if (threadIdx.x % kThreads == 0) store(out, c.E, e, P);
+}
+
+// (f) one warp per element on its staged data, each step shared over the
+// lanes (riccati_step.cuh), the warp's scratch after the 8 elements' data.
+__global__ void __launch_bounds__(kElems * kThreads)
+    team_kernel(Chain c, float* out, int sweeps, int stride) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / kThreads, e = blockIdx.x * kElems + warp;
+  stage_block(c, blockIdx.x * kElems, smem, stride);
+  if (e >= c.E) return;
+  float* s = smem + kElems * stride + warp * mpc::riccati::kScratchFloats;
+  mpc::riccati::team_chain(smem + warp * stride, c.N, sweeps, s);
+  for (int i = mpc::team_lane(); i < NX * NX; i += kThreads)
+    out[static_cast<long long>(i) * c.E + e] = s[mpc::riccati::kP + i];
+}
+
+// Latencies on one warp, in clock64 cycles for n of each, lane 0's clock:
+// dependent float32 fused multiply-adds, dependent divisions 1 / x, lane
+// exchanges through shared memory (a store, __syncwarp, the next lane's
+// load: one phase boundary of the team step) and exchanges by shuffle.
+// The empty asm statements pin each chain between its two clock reads.
+__global__ void latency_kernel(float x, int n, long long* cycles, float* sink) {
+  __shared__ float buf[2][kThreads];
+  const int lane = threadIdx.x, next = (lane + 1) % kThreads;
+  float a = x, b = x, c = x + lane, d = x + lane;
+  const long long t0 = clock64();
+  asm volatile("" : "+f"(a)::"memory");
+  for (int i = 0; i < n; ++i) a = fmaf(a, 0.999f, 1e-3f);
+  asm volatile("" : "+f"(a)::"memory");
+  const long long t1 = clock64();
+  asm volatile("" : "+f"(b)::"memory");
+  for (int i = 0; i < n; ++i) b = 1.0f / b;
+  asm volatile("" : "+f"(b)::"memory");
+  const long long t2 = clock64();
+  asm volatile("" : "+f"(c)::"memory");
+  for (int i = 0; i < n; ++i) {  // two buffers: a store never overtakes a load of the round before
+    buf[i & 1][lane] = c;
+    __syncwarp();
+    c = buf[i & 1][next];
+  }
+  asm volatile("" : "+f"(c)::"memory");
+  const long long t3 = clock64();
+  asm volatile("" : "+f"(d)::"memory");
+  for (int i = 0; i < n; ++i) d = __shfl_sync(0xffffffffu, d, next);
+  asm volatile("" : "+f"(d)::"memory");
+  const long long t4 = clock64();
+  if (lane == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = t2 - t1;
+    cycles[2] = t3 - t2;
+    cycles[3] = t4 - t3;
+  }
+  sink[lane] = a + b + c + d;
+}
+
 }  // namespace
 
 // mapping 0: one thread per element, 1: two interleaved per thread,
-// 2: eight lanes per element, 3: one warp per element. Returns
-// cudaGetLastError() as an int.
+// 2: eight lanes per element, 3: one warp per element, 4: one warp per
+// element on staged data, 5: the same with the step shared over the lanes.
+// Returns cudaGetLastError() (or the refusal of the shared-memory size) as
+// an int.
 extern "C" int riccati_probe_launch(int mapping, const float* H, const float* A, const float* B,
                                     float* P, int E, int N, int sweeps, void* stream) {
   if (E == 0) return 0;
   const Chain c{H, A, B, E, N};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mapping == 4 || mapping == 5) {
+    const int stride = staged_stride(N);
+    const int bytes = static_cast<int>(sizeof(float))
+                      * (kElems * stride + (mapping == 5 ? kElems * mpc::riccati::kScratchFloats : 0));
+    const cudaError_t err =
+        mapping == 4
+            ? cudaFuncSetAttribute(staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+            : cudaFuncSetAttribute(team_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // not left behind for the next launch's check
+      return static_cast<int>(err);
+    }
+    const int blocks = (E + kElems - 1) / kElems;
+    if (mapping == 4) staged_kernel<<<blocks, kElems * kThreads, bytes, st>>>(c, P, sweeps, stride);
+    else team_kernel<<<blocks, kElems * kThreads, bytes, st>>>(c, P, sweeps, stride);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long threads = mapping == 0   ? E
                             : mapping == 1 ? (E + 1) / 2
                             : mapping == 2 ? static_cast<long long>(E) * kGroup
@@ -307,4 +480,21 @@ extern "C" int riccati_probe_launch(int mapping, const float* H, const float* A,
   else if (mapping == 3) warp_kernel<<<blocks, kThreads, 0, st>>>(c, P, sweeps);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// latency_kernel's four counts (cycles[0..3]) for n of each; synchronizes.
+// Returns a cudaError_t as an int.
+extern "C" int riccati_probe_latency(int n, long long* cycles) {
+  long long* d_cycles = nullptr;
+  float* d_sink = nullptr;
+  cudaError_t err = cudaMalloc(&d_cycles, 4 * sizeof(long long));
+  if (err == cudaSuccess) err = cudaMalloc(&d_sink, kThreads * sizeof(float));
+  if (err == cudaSuccess) {
+    latency_kernel<<<1, kThreads>>>(1.5f, n, d_cycles, d_sink);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = cudaMemcpy(cycles, d_cycles, 4 * sizeof(long long), cudaMemcpyDeviceToHost);
+  cudaFree(d_cycles);
+  cudaFree(d_sink);
+  return static_cast<int>(err);
 }

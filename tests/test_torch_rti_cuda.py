@@ -282,16 +282,21 @@ def test_rti_wrapper_rejects_bad_input(jackal):
         solve_rti_cuda(Z0, P, s._stage_code, **dict(kw, it0=9, num_iterations=0))
 
 
+@pytest.mark.parametrize("n_stages", [20, 30])
 @pytest.mark.parametrize("mapping", riccati_probe.MAPPINGS)
-def test_riccati_probe_matches_plain(device, mapping):
-    """E=999: a ragged last block and an odd count for the interleaved pair."""
+def test_riccati_probe_matches_plain(device, mapping, n_stages):
+    """E=999: a ragged last block (of 32 threads, and of 8 elements for the
+    staged mappings) and an odd count for the interleaved pair; N=20 and the
+    single robot's N=30."""
     H, A, Bm = (torch.as_tensor(x, device=device)
-                for x in riccati_probe.make_data(np.random.default_rng(3), 999))
+                for x in riccati_probe.make_data(np.random.default_rng(3), 999, n_stages))
     ref = riccati_probe.factor_chain_torch(*(x.movedim(-1, 0).contiguous() for x in (H, A, Bm)))
     cuda_qp.reset_launch_counts()
+    before = riccati_probe.mapping_launches[mapping]
     P = riccati_probe.factor_chain_cuda(H, A, Bm, mapping)
     torch.cuda.synchronize()
     assert cuda_qp.launch_counts["riccati_probe"] == 1
+    assert riccati_probe.mapping_launches[mapping] == before + 1
     assert float((P - ref.movedim(0, -1)).abs().max()) < riccati_probe.TOLERANCE
 
 
