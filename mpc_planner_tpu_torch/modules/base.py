@@ -19,6 +19,7 @@ languages; here the pairing is the class itself).
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -130,6 +131,10 @@ class Module:
         collisions."""
 
 
+def _scoped(scope, prefix: str, module):
+    return contextlib.nullcontext() if scope is None else scope(prefix + module.module_name)
+
+
 class ObjectiveModule(Module):
     module_type = "objective"
 
@@ -211,9 +216,12 @@ class ModuleManager:
                     missing.append(msg)
         return ready, ", ".join(missing)
 
-    def update_all(self, state, data, module_data) -> None:
+    def update_all(self, state, data, module_data, scope=None) -> None:
+        """Each module's update; `scope(name)` (a Profiler's) times each as
+        `update.<module_name>`."""
         for m in self.modules:
-            m.update(state, data, module_data)
+            with _scoped(scope, "update.", m):
+                m.update(state, data, module_data)
 
     def save_data_all(self) -> dict:
         """Collect every module's saveData metrics for one iteration
@@ -223,9 +231,12 @@ class ModuleManager:
             m.save_data(record)
         return record
 
-    def set_parameters_all(self, data, module_data, pblock: ParameterBlock) -> None:
+    def set_parameters_all(self, data, module_data, pblock: ParameterBlock, scope=None) -> None:
+        """Each module's parameter fill, timed as `set_parameters.<module_name>`
+        by `scope` where given."""
         for m in self.modules:
-            m.set_parameters(data, module_data, pblock)
+            with _scoped(scope, "set_parameters.", m):
+                m.set_parameters(data, module_data, pblock)
 
     def on_data_received(self, data, data_name: str) -> None:
         for m in self.modules:

@@ -14,8 +14,13 @@ element gets its own warm start (from a guidance trajectory) and its own
 halfspace parameters (linearized around that trajectory). One device step
 per cycle (`_fused_step`) assembles the halfspaces, solves the batch on the
 solver's device (K1+K2, or K3 with `solver.rti_fused="on"`) and takes the
-consistency-weighted argmin; the host receives ONE packed vector per
-dispatch, and the duals carried to the next cycle stay on the device.
+consistency-weighted argmin; the host receives one packed vector per
+dispatch (and, inside the step, the winner's index twice), and the duals
+carried to the next cycle stay on the device.
+Spans: `tmpc_host_assemble`, then in `tmpc_dispatch_solve_pull` the
+`tmpc_halfspaces`, the solver's spans, `tmpc_select` (with two reads of the
+winner's index, `pull.tmpc_best`) and the read `pull.tmpc_packed`;
+`tmpc_escalation`; every device-to-host read through `Profiler.pull`.
 """
 
 from __future__ import annotations
@@ -123,6 +128,7 @@ class GuidanceConstraintModule(ConstraintModule):
         cfg = self.cfg
         model = planner.model
         solver = planner.solver
+        prof = planner.profiler
         dev = solver.device
         N = cfg.N
         B = self.n_planners
@@ -190,8 +196,9 @@ class GuidanceConstraintModule(ConstraintModule):
 
         with self._scope("tmpc_dispatch_solve_pull"):
             packed_d, Zall, ll, lu = self._fused_step(reg, n_iter, warm, **inputs)
-            # THE one device -> host copy of the dispatch
-            Z_best, best, found, exit_codes, pobj, qp_mu = self._unpack(packed_d.cpu().numpy(), B)
+            # the dispatch's packed result: its one copy of arrays to the host
+            Z_best, best, found, exit_codes, pobj, qp_mu = self._unpack(
+                prof.pull("tmpc_packed", packed_d), B)
         # stays on the device: read by the next cycle's solve only
         self._prev_duals = (ll, lu, torch.as_tensor(exit_codes == 1, device=dev))
 
@@ -203,14 +210,17 @@ class GuidanceConstraintModule(ConstraintModule):
             # Cold cycles escalate every flagged element; warm cycles only
             # those whose carried duals were applied (ok=False elements
             # already solved cold inside the warm dispatch).
-            applied = np.ones(B, bool) if warm is None else warm[2].cpu().numpy()
+            applied = np.ones(B, bool) if warm is None else prof.pull("tmpc_warm_ok", warm[2])
             failed = (exit_codes == -1) & applied
             stalled = stalled_f & applied
+            prof.count("escalation_flagged", int((failed | stalled).sum()))
             if (failed | stalled).any():
                 with self._scope("tmpc_escalation"):
+                    prof.count("escalation_solved", B)
                     packed_c, Zall_c, ll_c, lu_c = self._fused_step(
                         reg, n_iter, None, escalated=True, **inputs)
-                    _, _, _, codes_cold, pobj_cold, _ = self._unpack(packed_c.cpu().numpy(), B)
+                    _, _, _, codes_cold, pobj_cold, _ = self._unpack(
+                        prof.pull("tmpc_packed_cold", packed_c), B)
                 adopt = (failed & (codes_cold > exit_codes)) | (stalled & (codes_cold == 1))
                 if adopt.any():
                     exit_codes = np.where(adopt, codes_cold, exit_codes)
@@ -226,7 +236,7 @@ class GuidanceConstraintModule(ConstraintModule):
                     masked = np.where(feas, pobj * consistency, np.inf)
                     best = int(np.argmin(masked))
                     found = bool(np.isfinite(masked[best]))
-                    Z_best = Zall[best].cpu().numpy()
+                    Z_best = prof.pull("tmpc_Z_best", Zall[best])
 
         if not found:
             self.guidance.override_selected(None)
@@ -276,47 +286,52 @@ class GuidanceConstraintModule(ConstraintModule):
         N = self.cfg.N
         B = Z0.shape[0]
         n_obs = obst.shape[0]
-        if self._bundle_idx is None or self._bundle_idx[0].device != base_P.device:
-            self._bundle_idx = tuple(
-                torch.as_tensor(reg.bundle_indices(f"lin_constraint_{c}")[:n_obs],
-                                dtype=torch.long, device=base_P.device)
-                for c in ("a1", "a2", "b"))
-        a1_idx, a2_idx, b_idx = self._bundle_idx
+        prof = self._planner.profiler
+        with self._scope("tmpc_halfspaces"):
+            if self._bundle_idx is None or self._bundle_idx[0].device != base_P.device:
+                self._bundle_idx = tuple(
+                    torch.as_tensor(reg.bundle_indices(f"lin_constraint_{c}")[:n_obs],
+                                    dtype=torch.long, device=base_P.device)
+                    for c in ("a1", "a2", "b"))
+            a1_idx, a2_idx, b_idx = self._bundle_idx
 
-        p = pos[:, 1:N]  # [B, N-1, 2] stages 1..N-1
-        diff = obst[None] - p[:, None, :, :]  # [B, M, N-1, 2]
-        dist = torch.clamp(torch.sqrt((diff * diff).sum(-1)), min=1e-9)
-        a1 = (diff[..., 0] / dist).transpose(1, 2)  # [B, N-1, M]
-        a2 = (diff[..., 1] / dist).transpose(1, 2)
-        ox = obst[..., 0].T[None]  # [1, N-1, M]
-        oy = obst[..., 1].T[None]
-        b = a1 * ox + a2 * oy - (1e-3 + rr)
-        gm = guided[:, None, None]
-        a1 = torch.where(gm, a1, 0.0)
-        a2 = torch.where(gm, a2, 0.0)
-        b = torch.where(gm, b, 100.0)
-        P = base_P[None].expand((B,) + tuple(base_P.shape)).clone()
-        P[:, 1:N, a1_idx] = a1
-        P[:, 1:N, a2_idx] = a2
-        P[:, 1:N, b_idx] = b
-        P[:, N] = P[:, N - 1]
+            p = pos[:, 1:N]  # [B, N-1, 2] stages 1..N-1
+            diff = obst[None] - p[:, None, :, :]  # [B, M, N-1, 2]
+            dist = torch.clamp(torch.sqrt((diff * diff).sum(-1)), min=1e-9)
+            a1 = (diff[..., 0] / dist).transpose(1, 2)  # [B, N-1, M]
+            a2 = (diff[..., 1] / dist).transpose(1, 2)
+            ox = obst[..., 0].T[None]  # [1, N-1, M]
+            oy = obst[..., 1].T[None]
+            b = a1 * ox + a2 * oy - (1e-3 + rr)
+            gm = guided[:, None, None]
+            a1 = torch.where(gm, a1, 0.0)
+            a2 = torch.where(gm, a2, 0.0)
+            b = torch.where(gm, b, 100.0)
+            P = base_P[None].expand((B,) + tuple(base_P.shape)).clone()
+            P[:, 1:N, a1_idx] = a1
+            P[:, 1:N, a2_idx] = a2
+            P[:, 1:N, b_idx] = b
+            P[:, N] = P[:, N - 1]
 
         res = self._planner.solver.batch_impl(Z0, P, xinit, n_iter, warm0=warm,
                                               escalated=escalated)
 
-        feasible = res.exit_code == 1
-        nb = feasible & ~braking
-        feas_eff = torch.where(nb.any(), nb, feasible)
-        masked = torch.where(feas_eff, res.pobj * consistency, math.inf)
-        best = torch.argmin(masked)
-        found = torch.isfinite(masked[best])
-        packed = torch.cat([
-            res.Z[best].reshape(-1),
-            res.exit_code.to(torch.float32),
-            res.pobj,
-            res.qp_mu.to(torch.float32),
-            torch.stack([best.to(torch.float32), found.to(torch.float32)]),
-        ])
+        with self._scope("tmpc_select"):
+            feasible = res.exit_code == 1
+            nb = feasible & ~braking
+            feas_eff = torch.where(nb.any(), nb, feasible)
+            masked = torch.where(feas_eff, res.pobj * consistency, math.inf)
+            best = torch.argmin(masked)
+            # Indexing by a 0-d device tensor reads it to the host (item()):
+            # the two reads of `best` as they stand, each through pull.
+            found = torch.isfinite(masked[int(prof.pull("tmpc_best", best))])
+            packed = torch.cat([
+                res.Z[int(prof.pull("tmpc_best", best))].reshape(-1),
+                res.exit_code.to(torch.float32),
+                res.pobj,
+                res.qp_mu.to(torch.float32),
+                torch.stack([best.to(torch.float32), found.to(torch.float32)]),
+            ])
         return packed, res.Z, res.lam_l, res.lam_u
 
     def _warmstarts_from_guidance(self, model, trajs, Z_main) -> np.ndarray:

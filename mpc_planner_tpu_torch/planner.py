@@ -10,6 +10,11 @@ The timeout budget (planner.cpp:117-118: 1/f - elapsed - margin) maps to
 a host-side choice of RTI iteration count from the measured time per
 iteration. The solve's result is copied to the host every cycle (the
 planner publishes a numpy trajectory): that is a host sync by design.
+
+One `Profiler` serves the planner, its modules and its solver: the scopes
+`planning`, `update` (`update.<module>` each), `set_parameters`
+(`set_parameters.<module>`), `optimization`, the solver's spans inside it,
+and the counters; every device-to-host read goes through `Profiler.pull`.
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ class Planner:
         self.model = model
         self.modules = modules
         self.ocp = OCP(model, modules, cfg)
-        self.solver = SQPSolver(self.ocp, device=device)
-        self.profiler = Profiler()
+        self.profiler = Profiler(track_gc=True)
+        self.solver = SQPSolver(self.ocp, device=device, profiler=self.profiler)
         self.N = cfg.N
         self.dt = cfg.integrator_step
 
@@ -87,14 +92,14 @@ class Planner:
             self._publish_warmstart(module_data)
 
             with prof.scope("update"):
-                self.modules.update_all(state, data, module_data)
+                self.modules.update_all(state, data, module_data, scope=prof.scope)
             # `update` may have changed the state's spline variable
             xinit = np.array([state.get(n) for n in self.model.states])
             self._Z[0, self.model.nu:] = xinit
 
             with prof.scope("set_parameters"):
                 pblock = ParameterBlock(self.ocp.params, self.N + 1)
-                self.modules.set_parameters_all(data, module_data, pblock)
+                self.modules.set_parameters_all(data, module_data, pblock, scope=prof.scope)
                 self._finalize_terminal_row(pblock)
 
             num_iterations = self._iterations_for_budget(data)
@@ -112,9 +117,9 @@ class Planner:
                 if result is None:
                     t0 = time.perf_counter()
                     res = self.solver.solve(self._Z, pblock.data, xinit, num_iterations)
-                    Z = res.Z.cpu().numpy()
-                    exit_code = int(res.exit_code)
-                    pobj = float(res.pobj)
+                    Z = prof.pull("Z", res.Z)
+                    exit_code = int(prof.pull("exit_code", res.exit_code))
+                    pobj = float(prof.pull("pobj", res.pobj))
                     self._update_iter_time(time.perf_counter() - t0, num_iterations)
                 else:
                     Z, exit_code, pobj = result["Z"], result["exit_code"], result["pobj"]

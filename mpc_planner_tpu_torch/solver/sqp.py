@@ -22,6 +22,10 @@ globalization, generate_acados_solver.py:155-162).
   * One batched RTI loop serves every caller: `solve` is a batch of one.
     The per-cycle stall escalation reads exit codes on the host, a
     deliberate host sync, as in the reference.
+  * The solver records into a `Profiler` (the Planner's, or its own): the
+    spans `k3_launch`, `exit_codes`, `solve_batch_escalation` and `pull.*`,
+    and the counters `host_syncs`, `escalation_flagged` and
+    `escalation_solved`.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from mpc_planner_tpu_torch.ops.rti import stage_derivatives
 from mpc_planner_tpu_torch.ops.stage_codegen import StageCode
 from mpc_planner_tpu_torch.solver.ocp import OCP
 from mpc_planner_tpu_torch.solver.qp import QPData, solve_qp
+from mpc_planner_tpu_torch.utils.profiling import Profiler
 
 # Exit codes follow the reference's Forces-style convention
 # (acados_solver_interface.cpp:198-203 remaps acados codes to these).
@@ -87,10 +92,11 @@ def resolve_qp_backend(backend: str, device: torch.device, nu: int, nx: int) -> 
 class SQPSolver:
     """SQP-RTI solver for one OCP specification on one device: the card
     (`device=None`: cuda:0, an error without CUDA) unless the caller asks
-    for another, as the CPU tests do with `device="cpu"`."""
+    for another, as the CPU tests do with `device="cpu"`. `profiler`: where
+    its spans and counters go (the Planner passes its own); None builds one."""
 
     def __init__(self, ocp: OCP, device=None, iterations: Optional[int] = None,
-                 qp_iterations: Optional[int] = None):
+                 qp_iterations: Optional[int] = None, profiler: Optional[Profiler] = None):
         # Full-precision f32 products: TF32 breaks Riccati positive
         # definiteness (the reference forces "highest" for the same
         # reason, mpc_planner_tpu/solver/sqp.py:421-425).
@@ -99,6 +105,7 @@ class SQPSolver:
 
         self.ocp = ocp
         self.device = default_device(device)
+        self.profiler = Profiler(track_gc=True) if profiler is None else profiler
         cfg = ocp.cfg
         s = cfg.solver
         self.iterations = s.iterations if iterations is None else iterations
@@ -316,7 +323,8 @@ class SQPSolver:
                 Z = Z + sol.dz
                 iters = iters + 1
 
-        code, pobj, res_eq = self._exit_codes(Z, P, done if sqp_mode else None)
+        with self.profiler.scope("exit_codes"):
+            code, pobj, res_eq = self._exit_codes(Z, P, done if sqp_mode else None)
         return SolveResult(Z=Z, exit_code=code, pobj=pobj, res_eq=res_eq,
                            qp_mu=sol.mu, iters=iters, lam_l=sol.lam_l, lam_u=sol.lam_u)
 
@@ -344,12 +352,16 @@ class SQPSolver:
         Z0 = Z0.clone()
         Z0[:, 0, nu:] = xinit
         wi = self.qp_iterations if escalated else self.warm_qp_iters
-        res = solve_rti_cuda(
-            Z0, P, self._stage_code, lb_template=self._lb_template, ub_template=self._ub_template,
-            num_iterations=num_iterations, it0=self.qp_iterations if warm0 is None else wi,
-            warm_iters=wi, mu0=self.mu0, warm_duals=warm0, mehrotra=True,
-            sigma_fixed=self.warm_sigma, lm=self.lm, mirror_x_only=self._mirror_x_only)
-        code, pobj, res_eq = self._exit_codes(res.Z, P)
+        prof = self.profiler
+        with prof.scope("k3_launch"):
+            res = solve_rti_cuda(
+                Z0, P, self._stage_code, lb_template=self._lb_template,
+                ub_template=self._ub_template, num_iterations=num_iterations,
+                it0=self.qp_iterations if warm0 is None else wi, warm_iters=wi, mu0=self.mu0,
+                warm_duals=warm0, mehrotra=True, sigma_fixed=self.warm_sigma, lm=self.lm,
+                mirror_x_only=self._mirror_x_only)
+        with prof.scope("exit_codes"):
+            code, pobj, res_eq = self._exit_codes(res.Z, P)
         iters = torch.full((Z0.shape[0],), num_iterations, dtype=torch.int32, device=Z0.device)
         return SolveResult(Z=res.Z, exit_code=code, pobj=pobj, res_eq=res_eq, qp_mu=res.mu,
                            iters=iters, lam_l=res.lam_l, lam_u=res.lam_u)
@@ -404,6 +416,7 @@ class SQPSolver:
         the same cycle (`solver.qp_retry_cold`); with warm duals only the
         elements whose duals were applied are escalated. Reading the exit
         codes is a host sync."""
+        prof = self.profiler
         n = self.iterations if num_iterations is None else max(int(num_iterations), 1)
         args = (self._tensor(Z0), self._tensor(P), self._tensor(xinit))
         if warm_duals is None:
@@ -413,27 +426,31 @@ class SQPSolver:
             wl, wu, ok = warm_duals
             ok = self._tensor(ok, torch.bool)
             res = self.batch_impl(*args, n, warm0=(self._tensor(wl), self._tensor(wu), ok))
-            applied = ok.cpu().numpy()
+            applied = prof.pull("applied", ok)
         if not self.qp_retry_cold:
             return res
         if self.warm_qp_iters >= self.qp_iterations and applied is None:
             return res  # the escalated program would be identical
-        codes = res.exit_code.cpu().numpy()
+        codes = prof.pull("exit_codes", res.exit_code)
         failed = codes == EXIT_FAILURE
-        stalled = (codes == EXIT_SUCCESS) & (res.qp_mu.cpu().numpy() > self.qp_mu_stall)
+        stalled = (codes == EXIT_SUCCESS) & (prof.pull("qp_mu", res.qp_mu) > self.qp_mu_stall)
         if applied is not None:
             failed &= applied
             stalled &= applied
-        if not (failed | stalled).any():
+        flagged = int((failed | stalled).sum())
+        prof.count("escalation_flagged", flagged)
+        if not flagged:
             return res
-        cold = self.batch_impl(*args, n, escalated=True)
-        # Adopt the escalated result where it is strictly better than a
-        # failed one, or where a stalled element's full-budget solve also
-        # succeeded.
-        m = (self._tensor(failed, torch.bool) & (cold.exit_code > res.exit_code)) | (
-            self._tensor(stalled, torch.bool) & (cold.exit_code == EXIT_SUCCESS))
+        with prof.scope("solve_batch_escalation"):
+            cold = self.batch_impl(*args, n, escalated=True)
+            prof.count("escalation_solved", cold.Z.shape[0])
+            # Adopt the escalated result where it is strictly better than a
+            # failed one, or where a stalled element's full-budget solve also
+            # succeeded.
+            m = (self._tensor(failed, torch.bool) & (cold.exit_code > res.exit_code)) | (
+                self._tensor(stalled, torch.bool) & (cold.exit_code == EXIT_SUCCESS))
 
-        def pick(w, c):
-            return torch.where(m.reshape((-1,) + (1,) * (w.dim() - 1)), c, w)
+            def pick(w, c):
+                return torch.where(m.reshape((-1,) + (1,) * (w.dim() - 1)), c, w)
 
-        return SolveResult(*(pick(w, c) for w, c in zip(res, cold)))
+            return SolveResult(*(pick(w, c) for w, c in zip(res, cold)))
