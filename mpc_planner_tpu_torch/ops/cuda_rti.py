@@ -41,6 +41,10 @@ _HOST_SIGNATURES = {
     "mpc_rti_solve_host": (None, _SOLVE_ARGS + [_I]),
     "mpc_rti_linearize_host": (None, _LINEARIZE_ARGS),
 }
+# Resolutions of K3 (load_rti's first call per StageCode): launches over
+# resolutions is the kept library's hit ratio, one resolution per OCP and
+# process expected. Apart from cuda_qp.launch_counts, which counts launches.
+resolve_counts = {"rti": 0}
 
 
 def _typed(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
@@ -51,14 +55,23 @@ def _typed(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
 
 
 def load_rti(code: StageCode, verbose: bool = False) -> ctypes.CDLL:
-    """Generate, build (first call per OCP and process) and load K3 for the
-    OCP of `code`; checks that the library was built for its dimensions."""
-    lib = _typed(load_library(code, "cuda", verbose=verbose), _SIGNATURES)
-    dims = (ctypes.c_int * 4)()
-    lib.mpc_rti_dims(dims)
-    ocp = code.ocp
-    if tuple(dims) != (ocp.nu, ocp.nx, ocp.nh, ocp.npar):
-        raise RuntimeError(f"rti library dims {tuple(dims)} != OCP {(ocp.nu, ocp.nx, ocp.nh, ocp.npar)}")
+    """K3 for the OCP of `code`: generated, built (first call per OCP and
+    process), loaded, typed and checked against the OCP's dimensions at the
+    first call per `code`, then kept on it (`code.rti_lib`); later calls,
+    every launch among them, return the kept library. (Two threads that
+    resolve one StageCode at once both count, and keep the one library
+    that load_library builds.)"""
+    lib = code.rti_lib
+    if lib is None:
+        lib = _typed(load_library(code, "cuda", verbose=verbose), _SIGNATURES)
+        dims = (ctypes.c_int * 4)()
+        lib.mpc_rti_dims(dims)
+        ocp = code.ocp
+        if tuple(dims) != (ocp.nu, ocp.nx, ocp.nh, ocp.npar):
+            raise RuntimeError(
+                f"rti library dims {tuple(dims)} != OCP {(ocp.nu, ocp.nx, ocp.nh, ocp.npar)}")
+        code.rti_lib = lib
+        resolve_counts["rti"] += 1
     return lib
 
 

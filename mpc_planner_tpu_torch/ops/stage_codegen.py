@@ -32,6 +32,7 @@ card; or with the host compiler, with stage_eval.h, for the CPU test.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -385,7 +386,10 @@ def _read(path: str) -> str:
         return f.read()
 
 
+@functools.cache
 def _header_digest() -> str:
+    """sha256 of every header under csrc/, read once a process: the
+    headers do not change under a running process."""
     h = hashlib.sha256()
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cuh")) + glob.glob(os.path.join(CSRC, "*.h"))):
         with open(path, "rb") as f:
@@ -403,6 +407,7 @@ class StageCode:
         self.ocp = ocp
         self._struct = None
         self._flops = None
+        self.rti_lib = None  # K3 built for this OCP, typed and checked (cuda_rti.load_rti)
 
     def generate(self) -> str:
         """The `mpc::Stages` struct: dimensions and one templated function

@@ -32,7 +32,7 @@ from mpc_planner_tpu_torch import presets
 from mpc_planner_tpu_torch.experiments import riccati_probe
 from mpc_planner_tpu_torch.models import SecondOrderUnicycleModel
 from mpc_planner_tpu_torch.modules import GoalModule, ModuleManager, MPCBaseModule
-from mpc_planner_tpu_torch.ops import cuda_qp
+from mpc_planner_tpu_torch.ops import cuda_qp, cuda_rti
 from mpc_planner_tpu_torch.ops.cuda_rti import linearize_cuda, load_rti, solve_rti_cuda
 from mpc_planner_tpu_torch.ops.rti import solve_rti_torch
 from mpc_planner_tpu_torch.ops.stage_codegen import StageCode
@@ -280,6 +280,72 @@ def test_rti_wrapper_rejects_bad_input(jackal):
         solve_rti_cuda(Z0.double(), P, s._stage_code, **dict(kw, it0=9))
     with pytest.raises(ValueError):
         solve_rti_cuda(Z0, P, s._stage_code, **dict(kw, it0=9, num_iterations=0))
+
+
+def test_rti_handle_resolved_once_per_stage_code(jackal, monkeypatch):
+    """Fifty launches on a fresh StageCode of the goal OCP resolve K3 once
+    (cuda_rti.resolve_counts), ask for the generated code only in the
+    first, and answer bit for bit as a cold load_rti does: the first launch
+    on a second fresh StageCode, which resolves anew."""
+    s = jackal["solver"]
+    Z0, P = jackal["Z0"], jackal["P"]
+    args = dict(jackal["kw"], it0=s.qp_iterations)
+    code = StageCode(jackal["ocp"])
+    code.generate()  # as the solver's construction does
+    generated = []
+    real_generate = StageCode.generate
+
+    def counting_generate(self):
+        generated.append(self)
+        return real_generate(self)
+
+    monkeypatch.setattr(StageCode, "generate", counting_generate)
+    before = cuda_rti.resolve_counts["rti"]
+    cuda_qp.reset_launch_counts()
+    first = solve_rti_cuda(Z0, P, code, **args)
+    at_first = len(generated)
+    for _ in range(49):
+        last = solve_rti_cuda(Z0, P, code, **args)
+    torch.cuda.synchronize()
+    assert cuda_qp.launch_counts["rti"] == 50
+    assert cuda_rti.resolve_counts["rti"] == before + 1
+    assert at_first <= 1 and len(generated) == at_first
+    cold_code = StageCode(jackal["ocp"])
+    cold = solve_rti_cuda(Z0, P, cold_code, **args)
+    torch.cuda.synchronize()
+    assert cuda_rti.resolve_counts["rti"] == before + 2
+    assert cold_code.rti_lib is code.rti_lib is load_rti(code)
+    for f in ("Z", "lam_l", "lam_u", "mu"):
+        assert torch.equal(getattr(last, f), getattr(cold, f)), f
+        assert torch.equal(getattr(first, f), getattr(cold, f)), f
+
+
+def test_rti_handles_of_two_ocps_in_one_process(jackal, flagship):
+    """The goal and the flagship OCP resolve once each, to libraries of
+    their own dimensions, and every later lookup returns the kept one."""
+    before = cuda_rti.resolve_counts["rti"]
+    codes = [StageCode(jackal["ocp"]), StageCode(flagship["ocp"])]
+    libs = [load_rti(code) for code in codes]
+    for _ in range(3):
+        assert [load_rti(code) for code in codes] == libs
+    assert cuda_rti.resolve_counts["rti"] == before + 2
+    assert libs[0] is not libs[1]
+    for lib, code in zip(libs, codes):
+        dims = (cuda_rti.ctypes.c_int * 4)()
+        lib.mpc_rti_dims(dims)
+        ocp = code.ocp
+        assert tuple(dims) == (ocp.nu, ocp.nx, ocp.nh, ocp.npar)
+    assert jackal["ocp"].npar != flagship["ocp"].npar
+    cases = (jackal, flagship)
+    unresolved = sum(case["solver"]._stage_code.rti_lib is None for case in cases)
+    for case, code in zip(cases, codes):
+        args = dict(case["kw"], it0=case["solver"].qp_iterations)
+        out = solve_rti_cuda(case["Z0"][:5].contiguous(), case["P"][:5], code, **args)
+        ref = solve_rti_cuda(case["Z0"][:5].contiguous(), case["P"][:5],
+                             case["solver"]._stage_code, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(out.Z, ref.Z)
+    assert cuda_rti.resolve_counts["rti"] == before + 2 + unresolved
 
 
 @pytest.mark.parametrize("n_stages", [20, 30])
